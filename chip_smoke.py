@@ -3,26 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path at full size — the 9,720-tet box solved to 256 modes
-(44,289 dofs) and a 1 s, 64-object impact render at 48 kHz — after building the CUDA
-kernel from csrc/ and checking it against its plain PyTorch version on the card.
-Phases, in order (any failure exits non-zero before the final line):
+Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
+(44,289 dofs), a 1 s, 64-object impact render at 48 kHz, and the same 64 objects rendered
+for 1 s in 512-sample blocks with 16 sustained voices from the physics bridge — after
+building the CUDA kernels from csrc/ and checking each against its plain PyTorch version
+on the card. Phases, in order (any failure exits non-zero before the final line):
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc build (or cached load) of the kernel library;
-  3. kernel vs plain: impact_resonator against the plain recurrence on three inputs
-     (output < 2e-5 x peak, state rtol 1e-4 / atol 1e-9, impact active/age equal,
+  2. build: nvcc build (one process per source, in parallel) of the kernel library;
+  3. impact kernel vs plain: impact_resonator against the plain recurrence on three
+     inputs (output < 2e-5 x peak, state rtol 1e-4 / atol 1e-9, impact active/age equal,
      2xS bit-equal to S then S) and both times;
   4. golden render: the fixed synthetic 8-object bank, RMS inside (8.82e-3, 9.10e-3);
   5. main path, solve: mesh2modes on the box (warm-up, then timed): 44,289 dofs, 250
      modes, f1 within 1e-4 of 5103.1 Hz, answered on the device, lowest 20 elastic modes
      within 1e-5 (frequency) of scipy's shift-invert on the same assembled pencil;
-  6. main path, render: make_synth over 64 objects, one strike each, 1 s: finite,
-     nonzero, and every fused call through the kernel;
-  7. timings.
+  6. main path, impact render: make_synth over 64 objects, one strike each, 1 s: finite,
+     nonzero, and every fused call through the impact kernel;
+  a. coupled kernel vs plain: coupled_resonator against the plain recurrence on four
+     inputs (the reference's test scene; 64x256 with 16 voices on 12 objects, S=16,384;
+     1x200 and 256x200 with 256 voices) at tests/test_pallas_coupled.py's tolerances
+     (output < 5e-5 x peak, z_im rtol 1e-3 / atol 1e-6 x peak, relief mean rtol 1e-5,
+     penetration rtol 1e-4, voice and impact ages equal), 2xS bit-equal to S then S on the
+     first two, the gain-row tiers each shape takes, and both times at S=16,384 and 512;
+  b. rest silence: a resting contact (k * delta0^(3/2) == N exactly) through the coupled
+     kernel for 8 blocks of 512 renders exactly 0.0;
+  c. main path, sustained render: the solved box as 64 objects, one strike each, 8
+     sliding contacts resolved by the physics bridge into 16 voices, 1 s in 94 blocks of
+     512 with a publish before each: every block through the coupled kernel and none
+     through the impact kernel, finite, nonzero, every voice aged 48,128 samples, and
+     different from the impact-only render of the same scene; the per-block wall against
+     the 10.667 ms deadline is printed;
+  d. timings.
 
 The line before the last is the card's name and power limit; before it, one JSON line
-with the kernel's launches, parity and times. The last line is {"ok": true, ...}.
+with each kernel's main-path launches, parity, times and bound. The last line is
+{"ok": true, ...}.
 """
 
 from __future__ import annotations
@@ -184,6 +200,342 @@ def check_kernel(name, bank, imp, n_samples, n_slots, timed=False):
     return stats
 
 
+# ---- coupled scenes (numpy, seeded) ----
+
+COUPLED_TOL = {  # tests/test_pallas_coupled.py:66-74
+    "out": 5e-5,  # x peak
+    "z_im": (1e-3, 1e-6),  # rtol, atol x peak
+    "relief_mean": (1e-5, 1e-12),
+    "penetration": (1e-4, 1e-12),
+}
+
+
+def voice_rows(objs, normal_force=4.0, active=None):
+    """The voice rows of tests/test_pallas_coupled.py:add_voices for voices on `objs`,
+    in the packed upload layout: (V, 36) float32 and (V, 10) int32."""
+    n = len(objs)
+    f32 = np.zeros((n, 36), np.float32)
+    i32 = np.zeros((n, 10), np.int32)
+    f32[:, 0:3] = [0.5, 0.3, 0.2]
+    f32[:, 3:6] = [0, 1, 0]
+    f32[:, 6:9] = [1, 0, 0]
+    f32[:, 9:15] = [1, 0, 0, 0, 0, -1]
+    f32[:, 15] = normal_force
+    f32[:, 16] = 0.4  # friction
+    f32[:, 17] = 2.0**28  # stiffness
+    f32[:, 18] = 2.0**-20  # static penetration
+    f32[:, 19] = 0.3  # damping
+    f32[:, 20:24] = 0.4  # track rate
+    f32[:, 24:28] = 2e-7  # sigma
+    f32[:, 28:32] = 6.0  # window
+    f32[:, 32:36] = 4e-7  # step
+    i32[:, 0] = objs
+    i32[:, 1:4] = [0, 1, 2]
+    i32[:, 8] = 1
+    i32[:, 9] = 1
+    if active is not None:
+        f32[~active] = 0.0
+        i32[~active] = 0
+    return f32, i32
+
+
+def track_rows(rng, slots=2, n=512):
+    """A pool whose slot 0 holds a random track: (slots, n) heights and (slots, n+1) sums."""
+    heights = np.zeros((slots, n), np.float32)
+    sums = np.zeros((slots, n + 1), np.float32)
+    heights[0] = rng.standard_normal(n).astype(np.float32)
+    np.cumsum(heights[0], out=sums[0, 1:])
+    return heights, sums
+
+
+def coupled_scene_small():
+    """Input 1: make_scene(4, 32, 8, 1) plus add_voices(4, 4) (last row inactive)."""
+    bank, imp = scene_small(impacts_per_obj=1)
+    active = np.arange(4) < 3
+    f32, i32 = voice_rows(np.arange(4) % 4, active=active)
+    return bank, imp, f32, i32, track_rows(np.random.default_rng(11))
+
+
+def coupled_scene_bench(rng):
+    """Input 2: the slice's shape, 64 x 256, one impact per object, 16 voices on 12 objects
+    (objects 0-7 one each, 8-11 two each); loads 0.1-6 N, so the knee fires on some."""
+    from mesheditor_tpu_torch.synth.tracks import TRACK_SAMPLES
+
+    bank, imp = scene_bench(rng)
+    objs = np.concatenate([np.arange(8), np.repeat(np.arange(8, 12), 2)])
+    f32, i32 = voice_rows(objs, normal_force=rng.uniform(0.1, 6.0, objs.size))
+    return bank, imp, f32, i32, track_rows(rng, n=TRACK_SAMPLES)
+
+
+def coupled_scene_heavy(rng, n_obj):
+    """Inputs 3 and 4: n_obj objects x 200 modes, 256 voices spread round-robin."""
+    bank, imp = scene_bench(rng, n_obj=n_obj, k=200, per_obj=(1,) * n_obj)
+    f32, i32 = voice_rows(np.arange(256) % n_obj, normal_force=rng.uniform(0.1, 6.0, 256))
+    return bank, imp, f32, i32, track_rows(rng, n=4096)
+
+
+def make_coupled(scene, device):
+    import torch
+
+    from mesheditor_tpu_torch import convert
+    from mesheditor_tpu_torch.synth.bank import VoiceTable, apply_voice_state
+
+    bank, imp, f32, i32, (heights, sums) = scene
+    params, state = convert.bank(**bank, device=device)
+    table = convert.impact_table(device=device, **imp)
+    voices = apply_voice_state(VoiceTable.empty(len(f32), device),
+                               torch.tensor(f32, device=device),
+                               torch.tensor(i32, device=device))
+    return params, state, table, voices, convert.track_pool(heights, sums, device=device)
+
+
+def coupled_slots(scene):
+    imp = scene[1]
+    live = imp["obj"][imp["active"]]
+    return int(np.bincount(live).max()) if live.size else 0
+
+
+def check_coupled(name, scene, n_samples, invariance=False):
+    """Coupled kernel (CUDA) against the plain version on host copies of the same inputs,
+    at the reference's tolerances, and 2S == S then S on the card. Returns the stats."""
+    import torch
+
+    from mesheditor_tpu_torch.synth import coupled
+
+    r = coupled_slots(scene)
+    before = coupled.LAUNCHES
+    s_k, i_k, v_k, o_k = coupled.render_block_coupled(*make_coupled(scene, "cuda"), n_samples,
+                                                      1.0, 1.0, 1.0, r)
+    torch.cuda.synchronize()
+    assert coupled.LAUNCHES == before + 1, f"{name}: kernel not launched"
+    s_p, i_p, v_p, o_p = coupled.render_block_coupled(*make_coupled(scene, "cpu"), n_samples,
+                                                      1.0, 1.0, 1.0, r)
+    o_k, o_p = o_k.cpu().numpy(), o_p.numpy()
+    peak = max(float(np.abs(o_p).max()), 1e-30)
+    err = float(np.abs(o_k - o_p).max())
+    assert np.isfinite(o_k).all(), f"{name}: output not finite"
+    assert err < COUPLED_TOL["out"] * peak, f"{name}: output error {err:.3e} vs peak {peak:.3e}"
+    rtol, atol = COUPLED_TOL["z_im"]
+    assert np.allclose(s_k.z_im.cpu().numpy(), s_p.z_im.numpy(), rtol=rtol, atol=atol * peak), \
+        f"{name}: z_im"
+    for field in ("relief_mean", "penetration"):
+        rtol, atol = COUPLED_TOL[field]
+        a, b = getattr(v_k, field).cpu().numpy(), getattr(v_p, field).numpy()
+        assert np.allclose(a, b, rtol=rtol, atol=atol), \
+            f"{name}: {field} off by {np.abs(a - b).max():.3e}"
+    assert torch.equal(v_k.age.cpu(), v_p.age), f"{name}: voice age"
+    assert torch.equal(i_k.active.cpu(), i_p.active), f"{name}: impact active"
+    assert torch.equal(i_k.age.cpu(), i_p.age), f"{name}: impact age"
+    stats = {"max_abs_err": err, "rel_err": err / peak, "peak": peak}
+    if invariance:
+        sc = make_coupled(scene, "cuda")
+        s1, i1, v1, o1 = coupled.render_block_coupled(*sc, n_samples, 1.0, 1.0, 1.0, r)
+        s2, _i2, v2, o2 = coupled.render_block_coupled(sc[0], s1, i1, v1, sc[4], n_samples,
+                                                       1.0, 1.0, 1.0, r)
+        s12, _i12, v12, o12 = coupled.render_block_coupled(*sc, 2 * n_samples, 1.0, 1.0, 1.0,
+                                                           r)
+        assert torch.equal(o12, torch.cat([o1, o2])), f"{name}: 2S != S+S (output)"
+        assert torch.equal(s12.z_re, s2.z_re) and torch.equal(s12.z_im, s2.z_im), \
+            f"{name}: 2S != S+S (state)"
+        assert torch.equal(v12.relief_mean, v2.relief_mean) and torch.equal(
+            v12.penetration, v2.penetration), f"{name}: 2S != S+S (carries)"
+        stats["two_s_bit_equal"] = True
+    log(f"[coupled] {name}: S={n_samples} R={r} " + json.dumps(stats))
+    return stats
+
+
+def time_coupled(scene, n_samples, plain_reps=3):
+    """Kernel and plain version on the same card tensors at one sample count: (ms, plain_ms,
+    max |kernel - plain| of the mix, the kernel's launch arguments)."""
+    import torch
+
+    from mesheditor_tpu_torch.synth import coupled
+
+    sc = make_coupled(scene, "cuda")
+    args, _vb, _click = coupled.coupled_inputs(*sc, n_samples, 1.0, 1.0, 1.0,
+                                               coupled_slots(scene))
+    mix_k = coupled.resonate_coupled(*args)[0]
+    order, offsets = coupled._group_voices(args[12], sc[0].coeff_re.shape[0], args[13])
+    mix_p = coupled._resonate_coupled_plain(*args[:13], order, offsets)[0]
+    err = float((mix_k - mix_p).abs().max())
+    ms = median_ms(lambda: coupled.resonate_coupled(*args), torch.cuda.synchronize)
+    plain_ms = median_ms(lambda: coupled._resonate_coupled_plain(*args[:13], order, offsets),
+                         torch.cuda.synchronize, reps=plain_reps)
+    return ms, plain_ms, err, args
+
+
+def rest_modes_and_track():
+    """tests/test_render_properties.py's make_modes(64, 0.2) and make_track, in numpy."""
+    from mesheditor_tpu_torch.synth.tracks import TRACK_SAMPLES, RoughnessTrack
+    from mesheditor_tpu_torch.types import ModalModes
+
+    k, points = 64, 4
+    freqs = 40.0 * np.arange(1, k + 1) * 1.031
+    t60s = 0.2 / np.arange(1, k + 1)
+    shapes = np.zeros((points, k, 3), np.float32)
+    for p in range(points):
+        a = np.arange(1, k + 1) * 0.37 + p
+        shapes[p, :, 0] = np.sin(a) * 0.01
+        shapes[p, :, 1] = np.cos(a * 1.7) * 0.01
+        shapes[p, :, 2] = np.sin(a * 2.3) * 0.01
+    positions = np.stack([np.arange(points) * 0.01, np.zeros(points), np.zeros(points)], -1)
+    modes = ModalModes(freqs=freqs, t60s=t60s, shapes=shapes, positions=positions)
+    rng = np.random.default_rng(0x9E3779B9)
+    h = (rng.random(TRACK_SAMPLES, dtype=np.float64) * 2 - 1).astype(np.float32)
+    sums = np.zeros(TRACK_SAMPLES + 1, np.float32)
+    np.cumsum(h, out=sums[1:])
+    return modes, RoughnessTrack(heights=h, sums=sums, spacing=1e-6, rms=1.0)
+
+
+def rest_silence(device, blocks=8, frames=512) -> float:
+    """A contact at rest (no travel, no slip, k * delta0^(3/2) == N exactly with powers of
+    two) rendered through the coupled path: the peak must be exactly 0.0."""
+    import torch
+
+    from mesheditor_tpu_torch.synth import ContactTrackSpec, ModalSynth, SustainedVoice
+
+    modes, track = rest_modes_and_track()
+    synth = ModalSynth([modes], gains=[1.0], device=device)
+    slot = synth.adopt_track(1, lambda: track)
+    resting = [SustainedVoice(
+        voice_id=1, obj=0, blend_points=(0, 1, 0), blend_weights=(0.5, 0.5, 0.0),
+        normal=(0.0, 1.0, 0.0), normal_force=2.0**4, friction=0.5, stiffness=2.0**31,
+        static_penetration=2.0**-18, damping_coeff=0.4,
+        tracks=tuple(ContactTrackSpec(index=slot, rate=0.0, sigma=2e-7, window=8.0, step=0.0)
+                     for _ in range(4)),
+    )]
+    peak = 0.0
+    for _ in range(blocks):
+        synth.publish_voices(resting)
+        peak = max(peak, float(synth.render(frames).abs().max()))
+    torch.cuda.synchronize()
+    return peak
+
+
+def sustained_scene(result, device, seed=20261016, n_objects=64, strikes=True):
+    """The sustained main path's scene: 64 instances of the solved box, one strike each, and
+    8 sliding contacts between objects (0,1), (2,3), ..., (14,15) resolved by the physics
+    bridge into 16 voices. Returns (synth, voices)."""
+    from mesheditor_tpu_torch.api import contact_dynamics_for, make_synth
+    from mesheditor_tpu_torch.materials import CERAMIC
+    from mesheditor_tpu_torch.physics import AudioContactBridge, SustainedContact
+    from mesheditor_tpu_torch.physics.bridge import (SURFACE_MACHINED, SURFACE_SANDBLASTED,
+                                                     AudioBody)
+    from mesheditor_tpu_torch.synth import ModalEvent
+
+    synth = make_synth([result] * n_objects, sample_rate=48_000.0, device=device)
+    if strikes:
+        for o in range(n_objects):
+            synth.enqueue(ModalEvent(
+                kind="impact", obj=o, expos=o % max(result.modes.shapes.shape[0], 1),
+                j=(0.05, 0.02, 0.01), pulse_step=1.0 / 150.0,
+                pulse_gamma=np.pi / 2 / 150.0, accel_amp=0.001,
+            ))
+    bridge = AudioContactBridge(synth)
+    dyn = contact_dynamics_for(result)
+    positions = np.asarray(result.modes.positions, np.float64)
+    for o in range(n_objects):
+        bridge.register(o, AudioBody(o, dyn, CERAMIC.properties, positions,
+                                     SURFACE_MACHINED if o % 2 == 0 else SURFACE_SANDBLASTED))
+    rng = np.random.default_rng(seed)
+    contacts = {}
+    for c in range(8):
+        normal = np.array([0.0, 1.0, 0.0]) + rng.normal(0.0, 0.1, 3)
+        contacts[c] = SustainedContact(
+            contact_id=c, body_a=2 * c, body_b=2 * c + 1,
+            point=positions[rng.integers(len(positions))], normal=normal / np.linalg.norm(normal),
+            normal_force=float(rng.uniform(2.0, 10.0)), slip_speed=float(rng.uniform(0.05, 0.5)),
+            sweep_speed_a=float(rng.uniform(0.05, 0.5)),
+            sweep_speed_b=float(rng.uniform(0.05, 0.5)), friction=0.4, restitution=0.5,
+        )
+    return synth, bridge.resolve_voices(contacts, synth.sample_rate)
+
+
+def sustained_render(synth, voices, blocks=94, frames=512):
+    """A frame loop: publish the voice set, render one block, bring it to the host.
+    Returns (audio, per-block wall times in ms)."""
+    import torch
+
+    out, walls = [], []
+    torch.cuda.synchronize()
+    for _ in range(blocks):
+        t0 = time.perf_counter()
+        synth.publish_voices(voices)
+        out.append(synth.render(frames).cpu().numpy())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return np.concatenate(out), walls
+
+
+def profile_sustained(result, device, blocks=16) -> dict:
+    """torch.profiler over a warm window of the sustained frame loop: the device's busy
+    and idle share of the wall, device operations per block, and device time by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    synth, voices = sustained_scene(result, device)
+    sustained_render(synth, voices, blocks=4)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sustained_render(synth, voices, blocks=blocks)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            entry = by_name.setdefault(e.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += e.time_range.elapsed_us()
+    busy = sum(t for _n, t in by_name.values())
+    copies = sum(n for name, (n, _t) in by_name.items() if name.startswith(("Memcpy", "Memset")))
+    ops = sum(n for n, _t in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {
+        "blocks": blocks, "profiled_wall_ms_per_block": wall_us / blocks / 1e3,
+        "device_ms_per_block": busy / blocks / 1e3,
+        "idle_share": (1.0 - busy / wall_us) if busy else None,
+        "kernels_per_block": (ops - copies) / blocks, "copies_per_block": copies / blocks,
+        "top": [{"name": name[:60], "count": n, "ms_per_block": t / blocks / 1e3,
+                 "share": t / busy} for name, (n, t) in top],
+    }
+
+
+def coupled_flops_bytes(args, n_samples) -> tuple[float, float]:
+    """Operations and bytes of one coupled call on these inputs: per sample and mode the
+    shared update (7), its impact slots (2 per slot) and the mix (2); per stepped voice and
+    mode the deflection read (2) and its drive (6), plus ~24 scalar contact operations."""
+    coeff_re, gains4, vx, force_sro, gain_rok, v_obj = (args[0], args[3], args[5], args[6],
+                                                         args[7], args[12])
+    n_obj, n_modes = coeff_re.shape
+    n_slots = gain_rok.shape[0]
+    n_voice = gains4.shape[1]
+    stepped = int(((v_obj >= 0) & (v_obj < n_obj)).sum())
+    flops = n_samples * (n_obj * n_modes * (9 + 2 * n_slots) + stepped * (8 * n_modes + 24))
+    words = (4 * n_obj * n_modes + n_obj  # coefficients and state in, state out, out_gain
+             + stepped * (4 * n_modes + 6 + 2 + 2)  # gain rows, constants, carries in and out
+             + vx.shape[0] * 3 * stepped + force_sro.numel() + gain_rok.numel()
+             + n_samples + n_voice + n_obj + 1)  # mix; order and offsets
+    return float(flops), float(4 * words)
+
+
+def impact_flops_bytes(n_obj, n_modes, n_slots, n_samples) -> tuple[float, float]:
+    """Operations and bytes of one impact call: per sample and mode the update (7), the
+    impact slots (2 per slot) and the mix (2)."""
+    flops = n_samples * n_obj * n_modes * (9 + 2 * n_slots)
+    words = (4 * n_obj * n_modes + n_obj + n_samples * n_slots * n_obj
+             + n_slots * n_obj * n_modes + n_samples)
+    return float(flops), float(4 * words)
+
+
+# Published peaks of one H100 SXM at 700 W (NVIDIA data sheet): float32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops, nbytes) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (1e3 * t_ops, "operations") if t_ops >= t_bytes else (1e3 * t_bytes, "bytes")
+
+
 def golden_rms(device) -> float:
     """bench.py's golden render, rebuilt on the port."""
     from mesheditor_tpu_torch.api import make_synth
@@ -279,7 +631,7 @@ def main() -> int:
     log(f"[build] kernel library ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.BUILD_SECONDS:.2f} s) at {_build.library_path().relative_to(REPO)}")
     for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("=="):
             log(f"[build] {line.strip()}")
 
     # 3. kernel vs plain on the card
@@ -351,14 +703,89 @@ def main() -> int:
     log(f"[render] 64 objects x 1 s: rms {float(np.sqrt((audio ** 2).mean())):.6e}, "
         f"kernel launches {launches}")
 
-    # 7. timings
-    log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} ({card})")
+    # (a) coupled kernel vs plain on the card
+    from mesheditor_tpu_torch.synth import coupled
+
+    check_coupled("input 1: make_scene + add_voices (4x32, 3 live voices)",
+                  coupled_scene_small(), 256, invariance=True)
+    rng = np.random.default_rng(20260716)
+    scene2 = coupled_scene_bench(rng)
+    check_coupled("input 2: 64x256, 16 voices on 12 objects", scene2, 16384, invariance=True)
+    check_coupled("input 3: 1x200, 256 voices", coupled_scene_heavy(rng, 1), 512)
+    check_coupled("input 4: 256x200, 256 voices", coupled_scene_heavy(rng, 256), 512)
+    for label, k, per_obj in (("input 2", 256, 2), ("input 3", 200, 256), ("input 4", 200, 1),
+                              ("main path", 256, 1)):
+        log(f"[coupled] gain-row tiers, {label} (K={k}, {per_obj} voices/object): "
+            + json.dumps(coupled.coupled_plan(k, 1, per_obj)))
+    coupled_t = {}
+    for n in (16384, 512):
+        ms, plain_ms, err, args = time_coupled(scene2, n)
+        bound_ms, bound_by = bound(*coupled_flops_bytes(args, n))
+        coupled_t[n] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[coupled] input 2, S={n}: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}), |kernel - plain| {err:.3e} ({card})")
+
+    # (b) rest silence through the coupled kernel
+    before = coupled.LAUNCHES
+    peak = rest_silence(device)
+    assert coupled.LAUNCHES == before + 8, "rest scene did not go through the kernel"
+    assert peak == 0.0, f"resting contact not silent: peak {peak!r}"
+    log("[rest] 8 blocks of 512 with a resting contact: peak exactly 0.0")
+
+    # (c) the sustained main path: 64 objects, 16 bridge voices, 1 s in 512-sample blocks
+    synth, voices = sustained_scene(result, device)
+    assert len(voices) == 16, f"bridge resolved {len(voices)} voices, not 16"
+    impact.LAUNCHES = coupled.LAUNCHES = 0
+    t0 = time.perf_counter()
+    sustained, walls = sustained_render(synth, voices)
+    sustained_s = time.perf_counter() - t0
+    coupled_launches, impact_during = coupled.LAUNCHES, impact.LAUNCHES
+    rows = sorted(synth._voice_ids.values())
+    ages = synth.voices.age[rows].cpu().numpy()
+    assert coupled_launches == 94, f"coupled launches {coupled_launches} != 94 blocks"
+    assert impact_during == 0, f"{impact_during} impact-kernel launches on the sustained path"
+    assert sustained.shape == (48_128,) and np.isfinite(sustained).all(), "sustained not finite"
+    assert np.abs(sustained).max() > 0, "sustained render silent"
+    assert len(rows) == 16 and (ages == 48_128).all(), f"voice ages {ages}"
+    plain_synth, _ = sustained_scene(result, device)
+    impact_only, _ = sustained_render(plain_synth, [])
+    diff = float(np.abs(sustained - impact_only).max())
+    assert diff > 1e-3 * float(np.abs(impact_only).max()), "the voices are not audible"
+    block_median, block_max = float(np.median(walls)), float(np.max(walls))
+    log(f"[sustained] 64 objects, 16 voices, 94 blocks of 512: rms "
+        f"{float(np.sqrt((sustained ** 2).mean())):.6e}, coupled launches {coupled_launches}, "
+        f"impact launches {impact_during}, voice ages {int(ages[0])}, max |sustained - "
+        f"impact-only| {diff:.3e} (impact-only peak {float(np.abs(impact_only).max()):.3e})")
+    log(f"[sustained] per-block wall median {block_median:.3f} ms, largest {block_max:.3f} ms "
+        f"against the 10.667 ms deadline of a 512-sample block; 1 s in {sustained_s:.3f} s "
+        f"({card})")
+
+    prof = profile_sustained(result, device)
+    if prof["idle_share"] is None:
+        log("[profile] the profiler saw no device time: breakdown not measured")
+    else:
+        log(f"[profile] sustained frame loop ({card}): " + json.dumps(prof))
+
+    # timings
+    log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
+        f"{block_median:.3f} ({card})")
+    imp_bound, imp_by = bound(*impact_flops_bytes(64, 256, 1, 16384))
+    c512 = coupled_t[512]
     log(json.dumps({"kernels": [{
         "name": "impact_resonator", "route": "cuda",
         "source": "mesheditor_tpu_torch/csrc/impact_resonator.cu",
         "replaces": "mesheditor_tpu/synth/pallas_impact.py:48",
         "launches": launches, "max_abs_err": bench_stats["max_abs_err"],
         "ms": bench_stats["ms"], "plain_ms": bench_stats["plain_ms"],
+        "bound_ms": imp_bound, "bound_by": imp_by, "library_ms": None,
+    }, {
+        "name": "coupled_resonator", "route": "cuda",
+        "source": "mesheditor_tpu_torch/csrc/coupled_resonator.cu",
+        "replaces": "mesheditor_tpu/synth/pallas_coupled.py:40",
+        "launches": coupled_launches, "max_abs_err": c512["max_abs_err"],
+        "ms": c512["ms"], "plain_ms": c512["plain_ms"],
+        "bound_ms": c512["bound_ms"], "bound_by": c512["bound_by"], "library_ms": None,
     }]}))
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

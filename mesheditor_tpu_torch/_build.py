@@ -1,9 +1,10 @@
 """Build and load the package's hand-written CUDA kernels.
 
-The sources under csrc/ are compiled at first use by nvcc into one shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds) and loaded with ctypes.
-The library lands in build/kernels/<hash>/ at the repository root, keyed by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads as is.
+The sources under csrc/ are compiled at first use by nvcc, one process per source, all
+started together, then linked into one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds) and loaded with ctypes. The library lands in
+build/kernels/<hash>/ at the repository root, keyed by a hash of the sources and flags, so
+an edited source rebuilds and an unchanged one loads as is.
 """
 
 from __future__ import annotations
@@ -18,11 +19,11 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "impact_resonator.cu",)
+_SOURCES = (_PKG / "csrc" / "impact_resonator.cu", _PKG / "csrc" / "coupled_resonator.cu")
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
 )
 
 _LIB = None
@@ -53,13 +54,24 @@ def _build(out: Path) -> None:
     global BUILD_SECONDS, BUILD_LOG
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in _SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(_SOURCES, objs)]
+        logs = [(src.name, proc.communicate()[0], proc.returncode)
+                for src, proc in zip(_SOURCES, procs)]
+        BUILD_LOG = "".join(f"== {name}\n{log}" for name, log, _rc in logs)
+        failed = [f"{name} ({rc})" for name, _log, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n{BUILD_LOG}")
         tmp_out = Path(tmp) / out.name
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_out), *map(str, _SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp_out), *map(str, objs)],
+                              capture_output=True, text=True)
+        BUILD_LOG += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{BUILD_LOG}")
         os.replace(tmp_out, out)  # atomic: a concurrent loader sees all or nothing
     (out.parent / "build.log").write_text(BUILD_LOG)
     BUILD_SECONDS = time.perf_counter() - t0
@@ -79,5 +91,11 @@ def load_kernels() -> ctypes.CDLL:
     lib.impact_resonator.restype = i32
     lib.impact_resonator_partials.argtypes = [i32, i32]
     lib.impact_resonator_partials.restype = i32
+    lib.coupled_resonator.argtypes = [ptr] * 20 + [i32] * 6 + [ptr]
+    lib.coupled_resonator.restype = i32
+    lib.coupled_resonator_partials.argtypes = [i32, i32]
+    lib.coupled_resonator_partials.restype = i32
+    lib.coupled_resonator_plan.argtypes = [i32, i32, i32, ptr]
+    lib.coupled_resonator_plan.restype = i32
     _LIB = lib
     return lib

@@ -8,7 +8,7 @@ import torch
 
 from .fem.assembly import ElementOperators
 from .solve.amg import AmgPrecond
-from .synth.bank import BankParams, BankState, ImpactTable
+from .synth.bank import BankParams, BankState, ImpactTable, TrackPool, VoiceTable
 from .types import ModalModes
 
 
@@ -56,6 +56,16 @@ def impact_table(device="cpu", **fields) -> ImpactTable:
     """ImpactTable from the reference's nine impact fields."""
     return ImpactTable.from_numpy({f: np.array(fields[f]) for f in ImpactTable.FIELDS},
                                   device)
+
+
+def voice_table(device="cpu", **fields) -> VoiceTable:
+    """VoiceTable from the reference's voice fields (pos_base stays float64)."""
+    return VoiceTable.from_numpy({f: np.array(fields[f]) for f in VoiceTable.FIELDS}, device)
+
+
+def track_pool(heights, sums, device="cpu") -> TrackPool:
+    """TrackPool from the reference's (T, N) heights and (T, N + 1) running sums."""
+    return TrackPool(_f32(heights, device), _f32(sums, device))
 
 
 def modal_modes(*, freqs, t60s, shapes, positions=None,

@@ -138,5 +138,5 @@ def render_block_impacts(params: BankParams, state: BankState, impacts: ImpactTa
                                    n_obj, n_slots)
     mix, z_re, z_im = resonate(params.coeff_re, params.coeff_im, params.out_gain, gain_rok,
                                force_sro, state.z_re, state.z_im)
-    state, impacts = finish_block(params, impacts, z_re, z_im, num_samples)
+    state, impacts, _ = finish_block(params, impacts, z_re, z_im, num_samples)
     return state, impacts, mix + click

@@ -35,6 +35,8 @@ def test_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None\n"
         "import mesheditor_tpu_torch, mesheditor_tpu_torch.api, mesheditor_tpu_torch.convert\n"
         "import mesheditor_tpu_torch.solve, mesheditor_tpu_torch.synth, mesheditor_tpu_torch.fem\n"
+        "import mesheditor_tpu_torch.physics, mesheditor_tpu_torch.synth.coupled\n"
+        "import mesheditor_tpu_torch.synth.stream, mesheditor_tpu_torch.io\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
         " or m.startswith(('mesheditor_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -92,8 +94,32 @@ def test_cpu_render_takes_the_plain_version_and_counts_no_launch():
     assert torch.isfinite(out).all() and out.abs().max() > 0
 
 
-def test_sustained_voices_are_refused():
-    modes = ModalModes(np.array([440.0]), np.array([0.5]), np.zeros((1, 1, 3), np.float32))
-    synth = make_synth([modes], device="cpu")
-    with pytest.raises(NotImplementedError):
-        synth.publish_voices([])
+def test_publish_voices_opens_keeps_and_ends_a_voice():
+    from mesheditor_tpu_torch.synth import ContactTrackSpec, SustainedVoice, coupled
+    from mesheditor_tpu_torch.synth.tracks import synthesize_roughness
+
+    modes = ModalModes(np.linspace(200, 2000, 8), np.full(8, 0.3),
+                       np.full((2, 8, 3), 0.01, np.float32))
+    synth = make_synth([modes], device="cpu", max_voices=4)
+    slot = synth.adopt_track(7, lambda: synthesize_roughness(2e-4, -2.0, 1e-6))
+    voice = SustainedVoice(
+        voice_id=42, obj=0, blend_points=(0, 1, 0), blend_weights=(0.5, 0.5, 0.0),
+        normal=(0.0, 1.0, 0.0), slip_dir=(1.0, 0.0, 0.0),
+        sweep_dir=((1.0, 0.0, 0.0), (0.0, 0.0, -1.0)), normal_force=4.0, friction=0.4,
+        stiffness=2.0**28, static_penetration=2.0**-20, damping_coeff=0.3,
+        tracks=(ContactTrackSpec(index=slot, rate=0.4, sigma=2e-7, window=6.0, step=4e-7),),
+    )
+    synth.publish_voices([voice])
+    out = synth.render(256)  # opens the voice
+    row = synth._voice_ids[42]
+    assert synth.active_voices == 1 and bool(synth.voices.active[row])
+    assert torch.isfinite(out).all() and out.abs().max() > 0
+    synth.publish_voices([voice])
+    synth.render(256)  # keeps it: the carries advance, nothing resets
+    assert synth._voice_ids == {42: row} and int(synth.voices.age[row]) == 512
+    assert bool(synth.voices.primed[row])
+    synth.publish_voices([])
+    before = coupled.LAUNCHES
+    synth.render(256)  # ends it: the block is voice-free again
+    assert synth.active_voices == 0 and not bool(synth.voices.active[row])
+    assert coupled.LAUNCHES == before  # the CPU path launches no kernel
