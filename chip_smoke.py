@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, and the same 64 objects rendered
@@ -13,19 +13,26 @@ on the card. Phases, in order (any failure exits non-zero before the final line)
   2. build: nvcc build (one process per source, in parallel) of the kernel library;
   3. impact kernel vs plain: impact_resonator against the plain recurrence on three
      inputs (output < 2e-5 x peak, state rtol 1e-4 / atol 1e-9, impact active/age equal,
-     2xS bit-equal to S then S) and both times;
+     2xS bit-equal to S then S), the state bit-identical to the plain version's on the same
+     card tensors, its device time (CUDA events over back-to-back launches of the bound C
+     entry), the wrapper's host-clock time and the plain version's;
   4. golden render: the fixed synthetic 8-object bank, RMS inside (8.82e-3, 9.10e-3);
   5. main path, solve: mesh2modes on the box (warm-up, then timed): 44,289 dofs, 250
      modes, f1 within 1e-4 of 5103.1 Hz, answered on the device, lowest 20 elastic modes
      within 1e-5 (frequency) of scipy's shift-invert on the same assembled pencil;
   6. main path, impact render: make_synth over 64 objects, one strike each, 1 s: finite,
      nonzero, and every fused call through the impact kernel;
-  a. coupled kernel vs plain: coupled_resonator against the plain recurrence on four
+  a. coupled kernel vs plain: coupled_resonator against the plain recurrence on six
      inputs (the reference's test scene; 64x256 with 16 voices on 12 objects, S=16,384;
-     1x200 and 256x200 with 256 voices) at tests/test_pallas_coupled.py's tolerances
-     (output < 5e-5 x peak, z_im rtol 1e-3 / atol 1e-6 x peak, relief mean rtol 1e-5,
-     penetration rtol 1e-4, voice and impact ages equal), 2xS bit-equal to S then S on the
-     first two, the gain-row tiers each shape takes, and both times at S=16,384 and 512;
+     1x200 and 256x200 with 256 voices; the main path's layout, 64x256 with one voice on
+     each of objects 0-15, S=512; the same with two more voices on object 0, which sends
+     the launch down the block path) at tests/test_pallas_coupled.py's tolerances (output
+     < 5e-5 x peak, z_im rtol 1e-3 / atol 1e-6 x peak, relief mean rtol 1e-5, penetration
+     rtol 1e-4, voice and impact ages equal), 2xS bit-equal to S then S on inputs 1, 2 and
+     the main-path layout, the launch plan (warp or block path) each input takes, one
+     wrapper call launching the kernel and its mix sum and nothing else (the voices are
+     grouped inside the kernel), and the device time at the main-path layout, at its
+     3-voice variant and on input 2 (S=512 and 16,384);
   b. rest silence: a resting contact (k * delta0^(3/2) == N exactly) through the coupled
      kernel for 8 blocks of 512 renders exactly 0.0;
   c. main path, sustained render: the solved box as 64 objects, one strike each, 8
@@ -39,10 +46,14 @@ on the card. Phases, in order (any failure exits non-zero before the final line)
 The line before the last is the card's name and power limit; before it, one JSON line
 with each kernel's main-path launches, parity, times and bound. The last line is
 {"ok": true, ...}.
+
+--kernels runs phases 1-3 and a only (the kernels against their plain versions, and their
+times) and ends with "kernels: ok" instead.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -69,6 +80,7 @@ def card_line() -> str:
 
 
 def median_ms(fn, sync, reps: int = 10) -> float:
+    """Median host-clock time of fn() followed by sync(), after one warm-up call."""
     fn()  # warm-up
     sync()
     times = []
@@ -78,6 +90,40 @@ def median_ms(fn, sync, reps: int = 10) -> float:
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def event_ms(launch, n: int = 100, warmup: int = 5) -> float:
+    """Device time of one launch: CUDA events around n back-to-back launches of a bound
+    kernel entry (inputs already prepared), after a warm-up, divided by n."""
+    import torch
+
+    for _ in range(warmup):
+        launch()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def ptxas_summary(build_log: str) -> list[str]:
+    """One line per compiled kernel from nvcc's -Xptxas -v report: name, registers, stack
+    frame and spills."""
+    import re
+
+    lines, name, frame = [], None, ""
+    for line in build_log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = m.group(1)
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            lines.append(f"{name}: {m.group(1)} registers; {frame}")
+            name = None
+    return lines
 
 
 # ---- scenes for the kernel check (numpy, seeded) ----
@@ -190,10 +236,15 @@ def check_kernel(name, bank, imp, n_samples, n_slots, timed=False):
         gain_rok, force_sro = impact._regroup(ic, impact_gain_rows(pc, ic), force,
                                               pc.coeff_re.shape[0], n_slots)
         args = (pc.coeff_re, pc.coeff_im, pc.out_gain, gain_rok, force_sro, sc.z_re, sc.z_im)
-        mix_k, *_ = impact.resonate(*args)
-        mix_p, *_ = impact._resonate_plain(*args)
+        mix_k, zr_k, zi_k = impact.resonate(*args)
+        mix_p, zr_p, zi_p = impact._resonate_plain(*args)
+        assert torch.equal(zr_k, zr_p) and torch.equal(zi_k, zi_p), \
+            f"{name}: state not bit-identical to the plain version on the card"
+        stats["state_bit_identical"] = True
         stats["max_abs_err"] = float((mix_k - mix_p).abs().max())
-        stats["ms"] = median_ms(lambda: impact.resonate(*args), torch.cuda.synchronize)
+        stats["ms"] = event_ms(impact._bind(*args)[0])
+        stats["wrapper_host_ms"] = median_ms(lambda: impact.resonate(*args),
+                                             torch.cuda.synchronize)
         stats["plain_ms"] = median_ms(lambda: impact._resonate_plain(*args),
                                       torch.cuda.synchronize)
     log(f"[kernel] {name}: S={n_samples} R={n_slots} " + json.dumps(stats))
@@ -263,6 +314,18 @@ def coupled_scene_bench(rng):
 
     bank, imp = scene_bench(rng)
     objs = np.concatenate([np.arange(8), np.repeat(np.arange(8, 12), 2)])
+    f32, i32 = voice_rows(objs, normal_force=rng.uniform(0.1, 6.0, objs.size))
+    return bank, imp, f32, i32, track_rows(rng, n=TRACK_SAMPLES)
+
+
+def coupled_scene_main(rng, extra_on_0=0):
+    """The sustained main path's layout: 64 x 256, one impact per object, one voice on each
+    of objects 0-15 (the bridge's 16 voices, one per body), then extra_on_0 more voices on
+    object 0 (a body touching several others)."""
+    from mesheditor_tpu_torch.synth.tracks import TRACK_SAMPLES
+
+    bank, imp = scene_bench(rng)
+    objs = np.concatenate([np.arange(16), np.zeros(extra_on_0, int)])
     f32, i32 = voice_rows(objs, normal_force=rng.uniform(0.1, 6.0, objs.size))
     return bank, imp, f32, i32, track_rows(rng, n=TRACK_SAMPLES)
 
@@ -340,13 +403,18 @@ def check_coupled(name, scene, n_samples, invariance=False):
         assert torch.equal(v12.relief_mean, v2.relief_mean) and torch.equal(
             v12.penetration, v2.penetration), f"{name}: 2S != S+S (carries)"
         stats["two_s_bit_equal"] = True
+    v_obj = scene[3][:, 0][scene[2][:, 15] > 0]  # live rows (active voices carry a load)
+    per_obj = int(np.bincount(v_obj).max()) if v_obj.size else 0
+    stats["plan"] = coupled.coupled_plan(scene[0]["coeff_re"].shape[1], r, per_obj)
     log(f"[coupled] {name}: S={n_samples} R={r} " + json.dumps(stats))
     return stats
 
 
 def time_coupled(scene, n_samples, plain_reps=3):
-    """Kernel and plain version on the same card tensors at one sample count: (ms, plain_ms,
-    max |kernel - plain| of the mix, the kernel's launch arguments)."""
+    """The coupled kernel on the card at one sample count: its device time (CUDA events over
+    back-to-back launches of the bound C entry), the wrapper's host-clock time (argument
+    checks, allocation, launch, sync), the plain version's host-clock time on the same card
+    tensors (None when plain_reps is 0), max |kernel - plain| of the mix and the bound."""
     import torch
 
     from mesheditor_tpu_torch.synth import coupled
@@ -357,11 +425,38 @@ def time_coupled(scene, n_samples, plain_reps=3):
     mix_k = coupled.resonate_coupled(*args)[0]
     order, offsets = coupled._group_voices(args[12], sc[0].coeff_re.shape[0], args[13])
     mix_p = coupled._resonate_coupled_plain(*args[:13], order, offsets)[0]
-    err = float((mix_k - mix_p).abs().max())
-    ms = median_ms(lambda: coupled.resonate_coupled(*args), torch.cuda.synchronize)
-    plain_ms = median_ms(lambda: coupled._resonate_coupled_plain(*args[:13], order, offsets),
-                         torch.cuda.synchronize, reps=plain_reps)
-    return ms, plain_ms, err, args
+    out = {"max_abs_err": float((mix_k - mix_p).abs().max()),
+           "ms": event_ms(coupled._bind(*args)[0]),
+           "wrapper_host_ms": median_ms(lambda: coupled.resonate_coupled(*args),
+                                        torch.cuda.synchronize),
+           "plain_ms": None}
+    if plain_reps:
+        out["plain_ms"] = median_ms(
+            lambda: coupled._resonate_coupled_plain(*args[:13], order, offsets),
+            torch.cuda.synchronize, reps=plain_reps)
+    out["bound_ms"], out["bound_by"] = bound(*coupled_flops_bytes(args, n_samples))
+    return out
+
+
+def coupled_call_kernels(scene, n_samples=512) -> list[str]:
+    """The device kernels one resonate_coupled call launches (torch.profiler), by kind."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mesheditor_tpu_torch.synth import coupled
+
+    sc = make_coupled(scene, "cuda")
+    args, _vb, _click = coupled.coupled_inputs(*sc, n_samples, 1.0, 1.0, 1.0,
+                                               coupled_slots(scene))
+    coupled.resonate_coupled(*args)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        coupled.resonate_coupled(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return ["mix" if "mix_kernel" in n else "coupled" if "coupled" in n else n for n in names]
 
 
 def rest_modes_and_track():
@@ -601,7 +696,45 @@ def render_main(result, device, n_objects=64):
     return synth.render_seconds(1.0, 512)
 
 
+def coupled_kernel_phase(card: str) -> dict:
+    """Phase a: the coupled kernel against its plain version on six inputs, the plan each
+    takes, the kernels one call launches, and the device times. Returns the timings by
+    (layout, sample count)."""
+    check_coupled("input 1: make_scene + add_voices (4x32, 3 live voices)",
+                  coupled_scene_small(), 256, invariance=True)
+    rng = np.random.default_rng(20260716)
+    scene2 = coupled_scene_bench(rng)
+    check_coupled("input 2: 64x256, 16 voices on 12 objects", scene2, 16384, invariance=True)
+    check_coupled("input 3: 1x200, 256 voices", coupled_scene_heavy(rng, 1), 512)
+    check_coupled("input 4: 256x200, 256 voices", coupled_scene_heavy(rng, 256), 512)
+    scene_main = coupled_scene_main(rng)
+    main_plan = check_coupled("main-path layout: 64x256, one voice on each of objects 0-15",
+                              scene_main, 512, invariance=True)["plan"]
+    assert main_plan["path"] == "warp", f"the main-path layout took the {main_plan['path']} path"
+    scene_three = coupled_scene_main(rng, extra_on_0=2)
+    check_coupled("main-path layout with 3 voices on object 0 (18 voices)", scene_three, 512)
+    launches_per_call = coupled_call_kernels(scene_main)
+    assert sorted(launches_per_call) == ["coupled", "mix"], \
+        f"one coupled call launched {launches_per_call}, not the kernel and its mix sum"
+    log(f"[coupled] one resonate_coupled call launches {len(launches_per_call)} kernels "
+        f"(the coupled kernel and its mix sum): no voice grouping on the card")
+    coupled_t = {}
+    for label, scene, n, reps in (("main-path layout", scene_main, 512, 3),
+                                  ("main-path layout, 3 voices on object 0", scene_three, 512, 0),
+                                  ("input 2", scene2, 512, 3), ("input 2", scene2, 16384, 0)):
+        t = coupled_t[label, n] = time_coupled(scene, n, plain_reps=reps)
+        log(f"[coupled] {label}, S={n}: device {t['ms']:.4f} ms (events), wrapper "
+            f"{t['wrapper_host_ms']:.4f} ms (host clock), plain {t['plain_ms']} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}), |kernel - plain| "
+            f"{t['max_abs_err']:.3e} ({card})")
+    return coupled_t
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels", action="store_true",
+                        help="only the kernels against their plain versions, and their times")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError:
@@ -630,9 +763,8 @@ def main() -> int:
     _build.load_kernels()
     log(f"[build] kernel library ready in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.BUILD_SECONDS:.2f} s) at {_build.library_path().relative_to(REPO)}")
-    for line in _build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            log(f"[build] {line.strip()}")
+    for line in ptxas_summary(_build.BUILD_LOG):
+        log(f"[build] {line}")
 
     # 3. kernel vs plain on the card
     from mesheditor_tpu_torch.synth import impact
@@ -646,8 +778,14 @@ def main() -> int:
     check_kernel("stress (4 impacts on 8 objects, S=1000)", bank, imp, 1000, 4)
     bank, imp = scene_small()
     check_kernel("make_scene", bank, imp, 256, 2)
-    log(f"[kernel] impact_resonator {bench_stats['ms']:.3f} ms vs plain "
+    log(f"[kernel] impact_resonator device {bench_stats['ms']:.4f} ms (events), wrapper "
+        f"{bench_stats['wrapper_host_ms']:.4f} ms (host clock), plain "
         f"{bench_stats['plain_ms']:.3f} ms at 64x256, S=16384 ({card})")
+
+    if args.kernels:
+        coupled_kernel_phase(card)
+        log("kernels: ok")
+        return 0
 
     # 4. golden render
     rms = golden_rms(device)
@@ -706,25 +844,7 @@ def main() -> int:
     # (a) coupled kernel vs plain on the card
     from mesheditor_tpu_torch.synth import coupled
 
-    check_coupled("input 1: make_scene + add_voices (4x32, 3 live voices)",
-                  coupled_scene_small(), 256, invariance=True)
-    rng = np.random.default_rng(20260716)
-    scene2 = coupled_scene_bench(rng)
-    check_coupled("input 2: 64x256, 16 voices on 12 objects", scene2, 16384, invariance=True)
-    check_coupled("input 3: 1x200, 256 voices", coupled_scene_heavy(rng, 1), 512)
-    check_coupled("input 4: 256x200, 256 voices", coupled_scene_heavy(rng, 256), 512)
-    for label, k, per_obj in (("input 2", 256, 2), ("input 3", 200, 256), ("input 4", 200, 1),
-                              ("main path", 256, 1)):
-        log(f"[coupled] gain-row tiers, {label} (K={k}, {per_obj} voices/object): "
-            + json.dumps(coupled.coupled_plan(k, 1, per_obj)))
-    coupled_t = {}
-    for n in (16384, 512):
-        ms, plain_ms, err, args = time_coupled(scene2, n)
-        bound_ms, bound_by = bound(*coupled_flops_bytes(args, n))
-        coupled_t[n] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"[coupled] input 2, S={n}: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), |kernel - plain| {err:.3e} ({card})")
+    coupled_t = coupled_kernel_phase(card)
 
     # (b) rest silence through the coupled kernel
     before = coupled.LAUNCHES
@@ -771,7 +891,7 @@ def main() -> int:
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
         f"{block_median:.3f} ({card})")
     imp_bound, imp_by = bound(*impact_flops_bytes(64, 256, 1, 16384))
-    c512 = coupled_t[512]
+    c512 = coupled_t["main-path layout", 512]
     log(json.dumps({"kernels": [{
         "name": "impact_resonator", "route": "cuda",
         "source": "mesheditor_tpu_torch/csrc/impact_resonator.cu",

@@ -91,10 +91,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.impact_resonator.restype = i32
     lib.impact_resonator_partials.argtypes = [i32, i32]
     lib.impact_resonator_partials.restype = i32
-    lib.coupled_resonator.argtypes = [ptr] * 20 + [i32] * 6 + [ptr]
+    lib.coupled_resonator.argtypes = [ptr] * 19 + [i32] * 6 + [ptr]
     lib.coupled_resonator.restype = i32
-    lib.coupled_resonator_partials.argtypes = [i32, i32]
-    lib.coupled_resonator_partials.restype = i32
     lib.coupled_resonator_plan.argtypes = [i32, i32, i32, ptr]
     lib.coupled_resonator_plan.restype = i32
     _LIB = lib

@@ -34,7 +34,8 @@ _EXCITE_CHUNK = 256  # samples whose impact excitation the plain version forms i
 
 def _group_voices(v_obj: torch.Tensor, n_obj: int, n_per_obj: int):
     """CSR of the voices to step: voices with v_obj in [0, n_obj), sorted by (object, table
-    index); a voice ranked >= n_per_obj within its object is dropped.
+    index); a voice ranked >= n_per_obj within its object is dropped. The plain version's
+    grouping; the kernel finds the same set, in the same order, itself.
     Returns (order (V,) int32, kept voices first; offsets (O+1,) int32)."""
     n_voice = v_obj.shape[0]
     dev = v_obj.device
@@ -119,43 +120,38 @@ def _resonate_coupled_plain(coeff_re, coeff_im, out_gain, gains4, consts, vx, fo
     return mix, zr, zi, rm_out, pen_out
 
 
+_PLAN_KEYS = ("path", "threads_per_cta", "modes_per_lane",
+              "register_voices", "shared_voices", "global_voices", "register_slots", "run",
+              "smem_bytes")
+
+
 def coupled_plan(n_modes: int, n_slots: int, n_per_obj: int) -> dict:
-    """Where the kernel keeps each object's voice gain rows at these shapes (registers,
-    shared memory, global memory), the samples it stages per pass and its shared memory.
-    Builds the kernel library; needs nvcc."""
+    """The kernel's launch plan at these shapes: its path ("warp": one warp per object, a
+    CTA of 32 threads; "block": one CTA per object, a thread per mode), threads per CTA,
+    modes per lane, where each object's voice gain rows live (registers,
+    shared memory, global memory), impact gain rows in registers, samples staged per pass
+    and dynamic shared memory per CTA. Builds the kernel library; needs nvcc."""
     import ctypes
 
     from .._build import load_kernels
 
-    tiers = (ctypes.c_int * 5)()
-    if load_kernels().coupled_resonator_plan(n_modes, n_slots, n_per_obj, tiers) != 0:
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    if load_kernels().coupled_resonator_plan(n_modes, n_slots, n_per_obj, out) != 0:
         raise ValueError(f"coupled_resonator: shapes K={n_modes} R={n_slots} "
                          f"voices/object={n_per_obj} do not fit")
-    return dict(zip(("register_voices", "shared_voices", "global_voices", "run",
-                     "smem_bytes"), tiers))
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["path"] = ("warp", "block")[plan["path"]]
+    return plan
 
 
-def resonate_coupled(coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro, gain_rok,
-                     z_re, z_im, rm0, pen0, v_obj, n_per_obj: int):
-    """Advance the resonator grid and the voices over vx.shape[0] samples.
-
-    coeff_re, coeff_im, z_re, z_im: (O, K); out_gain: (O,); gains4: (4, V, K) (gnf, geo0,
-    geo1, read); consts: (6, V) (static penetration, stiffness, damping, normal force,
-    relief-mean leak, sample rate); vx: (S, 3, V) (relief, slope0, slope1); force_sro:
-    (S, R, O); gain_rok: (R, O, K); rm0, pen0: (V,); all float32. v_obj: (V,) int32, -1 for
-    a voice not to step; at most n_per_obj voices per object step (later ones are dropped).
-    Returns (mix (S,), z_re, z_im, rm (V,), pen (V,)); rows of voices not stepped keep
-    rm0/pen0."""
-    global LAUNCHES
+def _bind(coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro, gain_rok, z_re, z_im,
+          rm0, pen0, v_obj, n_per_obj: int):
+    """Check the arguments of a kernel call, allocate the outputs and bind the C entry to
+    them. Returns (launch, (mix, z_re, z_im, rm, pen)): launch() runs the kernel on the
+    current stream and raises if the launch fails; it counts nothing. The kernel groups the
+    voices itself: nothing here launches on the card."""
     device = coeff_re.device
     n_obj, n_modes = coeff_re.shape
-    order, offsets = _group_voices(v_obj, n_obj, n_per_obj)
-    if device.type == "cpu":
-        return _resonate_coupled_plain(coeff_re, coeff_im, out_gain, gains4, consts, vx,
-                                       force_sro, gain_rok, z_re, z_im, rm0, pen0, v_obj,
-                                       order, offsets)
-    if device.type != "cuda":
-        raise ValueError(f"resonate_coupled: unsupported device {device}")
     if n_modes > 1024:  # one thread per mode in a block of at most 1,024
         raise ValueError(f"resonate_coupled: at most 1024 modes per object, got {n_modes}")
     n_voice = gains4.shape[1]
@@ -171,28 +167,60 @@ def resonate_coupled(coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro
         ("rm0", rm0, (n_voice,)), ("pen0", pen0, (n_voice,)),
     ):
         _check(name, t, shape, device)
+    if (v_obj.dtype != torch.int32 or v_obj.device != device
+            or tuple(v_obj.shape) != (n_voice,) or not v_obj.is_contiguous()):
+        raise ValueError(f"v_obj: expected contiguous int32 ({n_voice},) on {device}, got "
+                         f"{v_obj.dtype} {tuple(v_obj.shape)} on {v_obj.device}")
     from .._build import load_kernels
 
     lib = load_kernels()
     f32 = dict(dtype=torch.float32, device=device)
-    partials = torch.empty(lib.coupled_resonator_partials(n_obj, n_modes), n_samples, **f32)
+    partials = torch.empty(n_obj, n_samples, **f32)
     mix = torch.empty(n_samples, **f32)
     new_re = torch.empty(n_obj, n_modes, **f32)
     new_im = torch.empty(n_obj, n_modes, **f32)
     rm_out, pen_out = rm0.clone(), pen0.clone()
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.coupled_resonator(
-        coeff_re.data_ptr(), coeff_im.data_ptr(), out_gain.data_ptr(), gains4.data_ptr(),
-        consts.data_ptr(), vx.data_ptr(), force_sro.data_ptr(), gain_rok.data_ptr(),
-        z_re.data_ptr(), z_im.data_ptr(), rm0.data_ptr(), pen0.data_ptr(), order.data_ptr(),
-        offsets.data_ptr(), new_re.data_ptr(), new_im.data_ptr(), rm_out.data_ptr(),
-        pen_out.data_ptr(), partials.data_ptr(), mix.data_ptr(),
-        n_obj, n_modes, n_voice, n_slots, n_samples, min(n_per_obj, n_voice), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"coupled_resonator kernel failed: cudaError {err}")
+    tensors = (coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro, gain_rok, z_re,
+               z_im, rm0, pen0, v_obj, new_re, new_im, rm_out, pen_out, partials, mix)
+    ptrs = [t.data_ptr() for t in tensors]
+    ints = (n_obj, n_modes, n_voice, n_slots, n_samples, min(n_per_obj, n_voice))
+
+    def launch():
+        err = lib.coupled_resonator(*ptrs, *ints, stream)
+        if err != 0:
+            raise RuntimeError(f"coupled_resonator kernel failed: cudaError {err}")
+
+    launch.tensors = tensors  # the kernel's memory lives as long as the launch
+    return launch, (mix, new_re, new_im, rm_out, pen_out)
+
+
+def resonate_coupled(coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro, gain_rok,
+                     z_re, z_im, rm0, pen0, v_obj, n_per_obj: int):
+    """Advance the resonator grid and the voices over vx.shape[0] samples.
+
+    coeff_re, coeff_im, z_re, z_im: (O, K); out_gain: (O,); gains4: (4, V, K) (gnf, geo0,
+    geo1, read); consts: (6, V) (static penetration, stiffness, damping, normal force,
+    relief-mean leak, sample rate); vx: (S, 3, V) (relief, slope0, slope1); force_sro:
+    (S, R, O); gain_rok: (R, O, K); rm0, pen0: (V,); all float32. v_obj: (V,) int32, -1 for
+    a voice not to step; at most n_per_obj voices per object step (later ones are dropped).
+    Returns (mix (S,), z_re, z_im, rm (V,), pen (V,)); rows of voices not stepped keep
+    rm0/pen0."""
+    global LAUNCHES
+    device = coeff_re.device
+    if device.type == "cpu":
+        n_obj = coeff_re.shape[0]
+        order, offsets = _group_voices(v_obj, n_obj, n_per_obj)
+        return _resonate_coupled_plain(coeff_re, coeff_im, out_gain, gains4, consts, vx,
+                                       force_sro, gain_rok, z_re, z_im, rm0, pen0, v_obj,
+                                       order, offsets)
+    if device.type != "cuda":
+        raise ValueError(f"resonate_coupled: unsupported device {device}")
+    launch, out = _bind(coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro, gain_rok,
+                        z_re, z_im, rm0, pen0, v_obj, n_per_obj)
+    launch()
     LAUNCHES += 1
-    return mix, new_re, new_im, rm_out, pen_out
+    return out
 
 
 def coupled_inputs(params: BankParams, state: BankState, impacts: ImpactTable,

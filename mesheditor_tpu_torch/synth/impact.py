@@ -57,17 +57,12 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def resonate(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im):
-    """Advance the resonator grid over force_sro.shape[0] samples.
-
-    coeff_re, coeff_im, z_re, z_im: (O, K); out_gain: (O,); gain_rok: (R, O, K);
-    force_sro: (S, R, O); all float32. Returns (mix (S,), new z_re, new z_im)."""
-    global LAUNCHES
+def _bind(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im):
+    """Check the arguments of a kernel call, allocate its outputs and bind the C entry to
+    them. Returns (launch, (mix, new z_re, new z_im)): launch()
+    runs the kernel on the current stream and raises if the launch fails; it counts
+    nothing."""
     device = coeff_re.device
-    if device.type == "cpu":
-        return _resonate_plain(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im)
-    if device.type != "cuda":
-        raise ValueError(f"resonate: unsupported device {device}")
     n_obj, n_modes = coeff_re.shape
     n_slots = gain_rok.shape[0]
     n_samples = force_sro.shape[0]
@@ -82,21 +77,42 @@ def resonate(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im):
 
     lib = load_kernels()
     f32 = dict(dtype=torch.float32, device=device)
-    partials = torch.empty(lib.impact_resonator_partials(n_obj, n_modes), n_samples, **f32)
+    rows = lib.impact_resonator_partials(n_obj, n_modes)
+    if rows < 0:
+        raise ValueError(f"impact_resonator: shapes O={n_obj} K={n_modes} do not fit")
+    partials = torch.empty(rows, n_samples, **f32)
     mix = torch.empty(n_samples, **f32)
     new_re = torch.empty(n_obj, n_modes, **f32)
     new_im = torch.empty(n_obj, n_modes, **f32)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.impact_resonator(
-        coeff_re.data_ptr(), coeff_im.data_ptr(), out_gain.data_ptr(), gain_rok.data_ptr(),
-        force_sro.data_ptr(), z_re.data_ptr(), z_im.data_ptr(), new_re.data_ptr(),
-        new_im.data_ptr(), partials.data_ptr(), mix.data_ptr(),
-        n_obj, n_modes, n_slots, n_samples, stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"impact_resonator kernel failed: cudaError {err}")
+    tensors = (coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im, new_re, new_im,
+               partials, mix)
+    ptrs = [t.data_ptr() for t in tensors]
+
+    def launch():
+        err = lib.impact_resonator(*ptrs, n_obj, n_modes, n_slots, n_samples, stream)
+        if err != 0:
+            raise RuntimeError(f"impact_resonator kernel failed: cudaError {err}")
+
+    launch.tensors = tensors  # the kernel's memory lives as long as the launch
+    return launch, (mix, new_re, new_im)
+
+
+def resonate(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im):
+    """Advance the resonator grid over force_sro.shape[0] samples.
+
+    coeff_re, coeff_im, z_re, z_im: (O, K); out_gain: (O,); gain_rok: (R, O, K);
+    force_sro: (S, R, O); all float32. Returns (mix (S,), new z_re, new z_im)."""
+    global LAUNCHES
+    device = coeff_re.device
+    if device.type == "cpu":
+        return _resonate_plain(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im)
+    if device.type != "cuda":
+        raise ValueError(f"resonate: unsupported device {device}")
+    launch, out = _bind(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im)
+    launch()
     LAUNCHES += 1
-    return mix, new_re, new_im
+    return out
 
 
 def _regroup(impacts: ImpactTable, gain_imp, force_imp, n_obj: int, n_slots: int):

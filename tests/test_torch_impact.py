@@ -318,3 +318,37 @@ def test_kernel_matches_plain_on_card(name):
     mix_p, zr_p, zi_p = impact._resonate_plain(*args)
     assert torch.equal(zr_k, zr_p) and torch.equal(zi_k, zi_p)
     assert (mix_k - mix_p).abs().max() < 2e-5 * mix_p.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_samples", [1, 33, 1000])
+@pytest.mark.parametrize("name", SCENES)
+def test_kernel_state_is_bit_identical_on_card(name, n_samples):
+    """The kernel's state equals the plain version's bit for bit on the same card tensors;
+    2S samples equal S then S."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    from mesheditor_tpu_torch.synth.render import _impact_force_curves, impact_gain_rows
+
+    bank, imp = SCENES[name]()
+    params, state, table = port_scene(bank, imp, "cuda")
+    force, _prev = _impact_force_curves(table, 2 * n_samples)
+    gain_rok, force_sro = impact._regroup(table, impact_gain_rows(params, table), force,
+                                          params.coeff_re.shape[0], slots(imp))
+    head = force_sro[:n_samples].contiguous()
+    args = (params.coeff_re, params.coeff_im, params.out_gain, gain_rok, head, state.z_re,
+            state.z_im)
+
+    def run(*a):
+        launch, out = impact._bind(*a)
+        launch()
+        return out
+
+    mix_k, zr_k, zi_k = run(*args)
+    mix_p, zr_p, zi_p = impact._resonate_plain(*args)
+    assert torch.equal(zr_k, zr_p) and torch.equal(zi_k, zi_p)
+    assert (mix_k - mix_p).abs().max() <= 2e-5 * mix_p.abs().max()
+    mix_12, zr_12, zi_12 = run(*args[:4], force_sro, *args[5:])
+    mix_2, zr_2, zi_2 = run(*args[:4], force_sro[n_samples:].contiguous(), zr_k, zi_k)
+    assert torch.equal(mix_12, torch.cat([mix_k, mix_2]))
+    assert torch.equal(zr_12, zr_2) and torch.equal(zi_12, zi_2)

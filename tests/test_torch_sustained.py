@@ -62,6 +62,18 @@ def voice_rows(n_obj, n_voice):
     return f32, i32
 
 
+def voice_rows_on(objs, loads=None):
+    """add_voices' rows for one live voice on each object of `objs`, in table order, with
+    normal forces `loads` (default 4 N)."""
+    n = len(objs)
+    f32, i32 = voice_rows(1, n + 1)
+    f32, i32 = f32[:n].copy(), i32[:n].copy()
+    i32[:, 0] = objs
+    if loads is not None:
+        f32[:, 15] = loads
+    return f32, i32
+
+
 def pool_rows(slots=2, n=512):
     rng = np.random.default_rng(11)
     heights = np.zeros((slots, n), np.float32)
@@ -243,6 +255,20 @@ def test_coupled_block_boundary_invariance_is_bit_exact(n_samples):
     assert torch.equal(i12.age, i2.age) and torch.equal(i12.active, i2.active)
 
 
+@pytest.mark.parametrize("which", ["scan", "pallas"])
+def test_main_path_layout_matches_reference(ref, which):
+    """The sustained main path's voice layout (one voice on each of the first quarter of
+    the objects, the rest voice-free), scaled down to 16 objects x 32 modes with voices on
+    objects 0-7, S=256: the plain coupled version against the reference's scan and its
+    Pallas kernel (interpret mode), at test_pallas_coupled.py's tolerances."""
+    bank, imp = make_scene(n_obj=16, k=32, n_imp=16, impacts_per_obj=1, seed=9)
+    scene = (bank, imp, voice_rows_on(np.arange(8)), pool_rows())
+    port = coupled.render_block_coupled(*port_coupled(scene), 256, 1.0, 1.0, 1.0, 1)
+    want = (ref.scan(scene, 256, sustain_level=1.0, coupling=1.0) if which == "scan"
+            else ref.pallas(scene, 256))
+    assert_coupled_close(port, want, which)
+
+
 def test_group_voices_layout():
     v_obj = torch.tensor([2, -1, 0, 2, 2, 5, 0, 1], dtype=torch.int32)
     order, offsets = coupled._group_voices(v_obj, 4, 2)
@@ -366,3 +392,103 @@ def test_coupled_kernel_matches_plain_on_card():
     s12, _i12, v12, o12 = coupled.render_block_coupled(*sc, 512, 1.0, 1.0, 1.0, 1)
     assert torch.equal(o12, torch.cat([o1, o2]))
     assert torch.equal(s12.z_im, s2.z_im) and torch.equal(v12.penetration, v2.penetration)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+
+
+def kernel_scene(k, per_obj, seed=5):
+    """Three objects of k modes, one impact each: per_obj voices on object 0, none on
+    object 1, one on object 2, interleaved in table order (per_obj == 256: 256 voices on
+    object 0 alone); loads 0.1-6 N, so the knee fires on some. Returns (scene, n_per_obj)."""
+    rng = np.random.default_rng(seed)
+    bank, imp = make_scene(n_obj=3, k=k, n_imp=6, impacts_per_obj=1, seed=seed)
+    if per_obj == 256:
+        objs = [0] * 256
+    else:
+        objs = [0] * per_obj
+        objs.insert(per_obj // 2, 2)
+    loads = rng.uniform(0.1, 6.0, len(objs)).astype(np.float32)
+    return (bank, imp, voice_rows_on(objs, loads), pool_rows()), max(per_obj, 1)
+
+
+def assert_kernel_matches_plain(scene, n_samples, n_per_obj):
+    """resonate_coupled on the card against the plain version on host copies of the same
+    inputs, at test_pallas_coupled.py's tolerances; voices past n_per_obj keep their carries
+    exactly."""
+    r = slots(scene[1])
+    args_k, _vb, _c = coupled.coupled_inputs(*port_coupled(scene, "cuda"), n_samples, 1.0, 1.0,
+                                             1.0, r, n_per_obj)
+    args_p, _vb, _c = coupled.coupled_inputs(*port_coupled(scene), n_samples, 1.0, 1.0, 1.0,
+                                             r, n_per_obj)
+    before = coupled.LAUNCHES
+    kern = [t.cpu() for t in coupled.resonate_coupled(*args_k)]
+    assert coupled.LAUNCHES == before + 1
+    plain = coupled.resonate_coupled(*args_p)
+    peak = float(plain[0].abs().max())
+    assert torch.isfinite(kern[0]).all()
+    assert float((kern[0] - plain[0]).abs().max()) < 5e-5 * peak
+    assert torch.allclose(kern[2], plain[2], rtol=1e-3, atol=1e-6 * peak)
+    assert torch.allclose(kern[3], plain[3], rtol=1e-5, atol=1e-12)
+    assert torch.allclose(kern[4], plain[4], rtol=1e-4, atol=1e-12)
+    order, offsets = coupled._group_voices(args_p[12], args_p[0].shape[0], n_per_obj)
+    dropped = order[int(offsets[-1]):].long()
+    assert torch.equal(kern[3][dropped], args_p[10][dropped])
+    assert torch.equal(kern[4][dropped], args_p[11][dropped])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_samples", [1, 31, 32, 33, 512])
+@pytest.mark.parametrize("k, per_obj", [(k, v) for k in (96, 200, 256, 1024)
+                                        for v in (0, 1, 4, 5, 33)] + [(200, 256)])
+def test_coupled_kernel_paths_match_plain_on_card(k, per_obj, n_samples):
+    """Both launch paths (warp: K <= 256 with at most four voices an object; block:
+    K = 1024, or five or more voices) and the edges of the 32-sample mix run, against the
+    plain version."""
+    _needs_card()
+    scene, n_per_obj = kernel_scene(k, per_obj)
+    assert_kernel_matches_plain(scene, n_samples, n_per_obj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, n_per_obj", [(96, 2), (256, 1), (200, 5)])
+def test_in_kernel_voice_set_matches_group_voices_on_card(k, n_per_obj):
+    """Voices ranked past n_per_obj on their object, voices on no object and past the bank:
+    the kernel steps the set _group_voices keeps, in its order, and leaves the rest."""
+    _needs_card()
+    objs = [2, 0, 2, 2, 0, 1, 2, 0, 0, 2, 1, 0, 2, 2]
+    scene = kernel_scene(k, 1)[0][:2] + (voice_rows_on(objs), pool_rows())
+    assert_kernel_matches_plain(scene, 100, n_per_obj)
+    r = slots(scene[1])
+    args, _vb, _c = coupled.coupled_inputs(*port_coupled(scene, "cuda"), 100, 1.0, 1.0, 1.0, r,
+                                           n_per_obj)
+    v_obj = torch.tensor([2, -1, 0, 2, 2, 5, 0, 1, 2, 0, 7, 0, 2, 2], dtype=torch.int32)
+    args_k = args[:12] + (v_obj.cuda(), n_per_obj)
+    args_p = tuple(a.cpu() if torch.is_tensor(a) else a for a in args_k)
+    kern = [t.cpu() for t in coupled.resonate_coupled(*args_k)]
+    plain = coupled.resonate_coupled(*args_p)
+    peak = float(plain[0].abs().max())
+    assert float((kern[0] - plain[0]).abs().max()) < 5e-5 * peak
+    assert torch.allclose(kern[3], plain[3], rtol=1e-5, atol=1e-12)
+    assert torch.equal(kern[3] == args_p[10], plain[3] == args_p[10])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, per_obj", [(256, 1), (96, 4), (200, 5), (1024, 1)])
+def test_coupled_kernel_two_s_equals_s_plus_s_on_card(k, per_obj):
+    """Rendering 2S samples equals S then S, bit for bit, on both paths, with S = 300 (not
+    a multiple of the 32-sample mix run)."""
+    _needs_card()
+    scene, n_per_obj = kernel_scene(k, per_obj)
+    sc = port_coupled(scene, "cuda")
+    r = slots(scene[1])
+    s1, i1, v1, o1 = coupled.render_block_coupled(*sc, 300, 1.0, 1.0, 1.0, r, n_per_obj)
+    s2, _i2, v2, o2 = coupled.render_block_coupled(sc[0], s1, i1, v1, sc[4], 300, 1.0, 1.0,
+                                                   1.0, r, n_per_obj)
+    s12, _i12, v12, o12 = coupled.render_block_coupled(*sc, 600, 1.0, 1.0, 1.0, r, n_per_obj)
+    assert torch.equal(o12, torch.cat([o1, o2]))
+    assert torch.equal(s12.z_re, s2.z_re) and torch.equal(s12.z_im, s2.z_im)
+    assert torch.equal(v12.relief_mean, v2.relief_mean)
+    assert torch.equal(v12.penetration, v2.penetration)
