@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels]
+    python3 chip_smoke.py [--kernels | --scene]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
-(44,289 dofs), a 1 s, 64-object impact render at 48 kHz, and the same 64 objects rendered
-for 1 s in 512-sample blocks with 16 sustained voices from the physics bridge — after
-building the CUDA kernels from csrc/ and checking each against its plain PyTorch version
-on the card. Phases, in order (any failure exits non-zero before the final line):
+(44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
+for 1 s in 512-sample blocks with 16 sustained voices from the physics bridge, and the
+scene-in / audio-out path (a closed surface meshed and solved, a corpus solved into the
+model store, a scene of falling bodies simulated to audio, the command line) — after
+building the CUDA kernels from csrc/ and the tet mesher from native/tetmesher.cpp and
+checking each kernel against its plain PyTorch version on the card. Phases, in order (any
+failure exits non-zero before the final line):
 
   1. card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: nvcc build (one process per source, in parallel) of the kernel library;
@@ -41,6 +44,30 @@ on the card. Phases, in order (any failure exits non-zero before the final line)
      through the impact kernel, finite, nonzero, every voice aged 48,128 samples, and
      different from the impact-only render of the same scene; the per-block wall against
      the 10.667 ms deadline is printed;
+  e. surface: api.solve_surface on the reference bench's production case, the torus
+     (0.06, 0.025) meshed by the Delaunay mesher at bbox/24 and solved for 30 modes in
+     ceramic: 51,402 dofs, 12 modes, f1 within 1e-4 of 5565.28 Hz (on another mesh, both
+     counts are printed), the lowest 10 elastic modes within 1e-5 of scipy's shift-invert on
+     the mesh that was built, answered by the native mesher and the device engine; then a
+     Poisson-ratio edit solved cold and warm (seeded from ModalWarmStart): the warm solve
+     takes no more iterations. The mesher's counters, the stage report and the profile
+     tree are printed;
+  f. store_batch: batch_solve over a seeded corpus of 7 meshes (boxes, a bar, a torus, an
+     iso-surface blob) in several buckets into a temporary store: every model reloads
+     under its content hash with the row's modes and f1, a second run solves nothing and
+     writes no file, one padded solve equals its unpadded solve within 1e-6 (both are
+     timed, in turns);
+  g. scene: a plane and 8 falling bodies (plastic balls, wooden blocks) reconciled by
+     SceneAudio (8 solves, then all up to date, a density edit rescaled with no solve, a
+     fresh SceneAudio loading all 8 from the store) and simulated for 1 s by simulate_scene
+     at 48 kHz in blocks of 512: finite, audible, impacts through the impact kernel and
+     sliding contacts through the coupled kernel, poses written back; the per-block wall
+     and the host time of the physics step, the bridge and the render call are printed;
+     then the same scene is run again from the stored models with every block also rendered
+     by the plain version on host copies of the block's own arguments (the scene's bank
+     shape, slots and voices) and held to the kernels' tolerances; the spread of the
+     repeated solves of one request (frequencies, mode-shape signs) is printed;
+  h. cli: `python -m mesheditor_tpu_torch solve`, `info` and `render` as subprocesses;
   d. timings.
 
 The line before the last is the card's name and power limit; before it, one JSON line
@@ -48,16 +75,21 @@ with each kernel's main-path launches, parity, times and bound. The last line is
 {"ok": true, ...}.
 
 --kernels runs phases 1-3 and a only (the kernels against their plain versions, and their
-times) and ends with "kernels: ok" instead.
+times) and ends with "kernels: ok" instead. --scene runs phases 1-2 and e-h only and ends
+with "scene: ok".
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from dataclasses import asdict, fields, is_dataclass, replace
 from pathlib import Path
 
 import numpy as np
@@ -65,6 +97,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 F1_HZ = 5103.1  # the bench box's first elastic mode (reference runs: 5103.037, 5103.115)
 GOLDEN_BAND = (8.82e-3, 9.10e-3)
+TORUS_DOFS, TORUS_MODES, TORUS_F1_HZ = 51_402, 12, 5565.28  # the reference bench's CDT case
+BLOCK_DEADLINE_MS = 512 / 48_000.0 * 1e3
 
 
 def log(msg: str) -> None:
@@ -196,6 +230,25 @@ def scene_small(rng_seed=3, n_obj=4, k=32, n_imp=8, impacts_per_obj=2):
     return bank, imp
 
 
+def impact_parity(name, kernel, plain, state_atol=1e-9) -> tuple[float, float]:
+    """Hold one impact block rendered on the card, (state, impacts, out), to the same block
+    from the plain version on host copies of its inputs. Returns (max |error|, peak)."""
+    import torch
+
+    (s_k, i_k, out_k), (s_p, i_p, out_p) = kernel, plain
+    out_k, out_p = out_k.cpu().numpy(), out_p.numpy()
+    peak = max(float(np.abs(out_p).max()), 1e-30)
+    err = float(np.abs(out_k - out_p).max())
+    assert np.isfinite(out_k).all(), f"{name}: output not finite"
+    assert err < 2e-5 * peak, f"{name}: output error {err:.3e} >= 2e-5 x peak {peak:.3e}"
+    for a, b in ((s_k.z_re, s_p.z_re), (s_k.z_im, s_p.z_im)):
+        assert np.allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=state_atol), \
+            f"{name}: state"
+    assert torch.equal(i_k.active.cpu(), i_p.active), f"{name}: impact active"
+    assert torch.equal(i_k.age.cpu(), i_p.age), f"{name}: impact age"
+    return err, peak
+
+
 def check_kernel(name, bank, imp, n_samples, n_slots, timed=False):
     """Kernel (CUDA) against the plain version: the full block on the card against the
     same block on host copies, block-boundary invariance on the card, and (timed) both
@@ -212,17 +265,10 @@ def check_kernel(name, bank, imp, n_samples, n_slots, timed=False):
 
     pc, sc, ic = make("cuda")
     ph, sh, ih = make("cpu")
-    s_k, i_k, out_k = impact.render_block_impacts(pc, sc, ic, n_samples, 1.0, n_slots)
+    kernel = impact.render_block_impacts(pc, sc, ic, n_samples, 1.0, n_slots)
     torch.cuda.synchronize()
-    s_p, i_p, out_p = impact.render_block_impacts(ph, sh, ih, n_samples, 1.0, n_slots)
-    out_k, out_p = out_k.cpu().numpy(), out_p.numpy()
-    peak = max(float(np.abs(out_p).max()), 1e-30)
-    err = float(np.abs(out_k - out_p).max())
-    assert err < 2e-5 * peak, f"{name}: output error {err:.3e} >= 2e-5 x peak {peak:.3e}"
-    for a, b in ((s_k.z_re, s_p.z_re), (s_k.z_im, s_p.z_im)):
-        assert np.allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-9), f"{name}: state"
-    assert torch.equal(i_k.active.cpu(), i_p.active), f"{name}: impact active"
-    assert torch.equal(i_k.age.cpu(), i_p.age), f"{name}: impact age"
+    err, peak = impact_parity(name, kernel,
+                              impact.render_block_impacts(ph, sh, ih, n_samples, 1.0, n_slots))
     # Block-boundary invariance on the card: 2S samples == S then S, bit for bit.
     s1, i1, o1 = impact.render_block_impacts(pc, sc, ic, n_samples, 1.0, n_slots)
     s2, _i2, o2 = impact.render_block_impacts(pc, s1, i1, n_samples, 1.0, n_slots)
@@ -358,28 +404,22 @@ def coupled_slots(scene):
     return int(np.bincount(live).max()) if live.size else 0
 
 
-def check_coupled(name, scene, n_samples, invariance=False):
-    """Coupled kernel (CUDA) against the plain version on host copies of the same inputs,
-    at the reference's tolerances, and 2S == S then S on the card. Returns the stats."""
+def coupled_parity(name, kernel, plain, state_scale=None) -> tuple[float, float]:
+    """Hold one coupled block rendered on the card, (state, impacts, voices, out), to the
+    same block from the plain version on host copies of its inputs, at COUPLED_TOL (the
+    state's absolute tolerance is taken times state_scale, the output's peak if None).
+    Returns (max |error|, peak)."""
     import torch
 
-    from mesheditor_tpu_torch.synth import coupled
-
-    r = coupled_slots(scene)
-    before = coupled.LAUNCHES
-    s_k, i_k, v_k, o_k = coupled.render_block_coupled(*make_coupled(scene, "cuda"), n_samples,
-                                                      1.0, 1.0, 1.0, r)
-    torch.cuda.synchronize()
-    assert coupled.LAUNCHES == before + 1, f"{name}: kernel not launched"
-    s_p, i_p, v_p, o_p = coupled.render_block_coupled(*make_coupled(scene, "cpu"), n_samples,
-                                                      1.0, 1.0, 1.0, r)
+    (s_k, i_k, v_k, o_k), (s_p, i_p, v_p, o_p) = kernel, plain
     o_k, o_p = o_k.cpu().numpy(), o_p.numpy()
     peak = max(float(np.abs(o_p).max()), 1e-30)
     err = float(np.abs(o_k - o_p).max())
     assert np.isfinite(o_k).all(), f"{name}: output not finite"
     assert err < COUPLED_TOL["out"] * peak, f"{name}: output error {err:.3e} vs peak {peak:.3e}"
     rtol, atol = COUPLED_TOL["z_im"]
-    assert np.allclose(s_k.z_im.cpu().numpy(), s_p.z_im.numpy(), rtol=rtol, atol=atol * peak), \
+    assert np.allclose(s_k.z_im.cpu().numpy(), s_p.z_im.numpy(), rtol=rtol,
+                       atol=atol * (peak if state_scale is None else state_scale)), \
         f"{name}: z_im"
     for field in ("relief_mean", "penetration"):
         rtol, atol = COUPLED_TOL[field]
@@ -389,6 +429,24 @@ def check_coupled(name, scene, n_samples, invariance=False):
     assert torch.equal(v_k.age.cpu(), v_p.age), f"{name}: voice age"
     assert torch.equal(i_k.active.cpu(), i_p.active), f"{name}: impact active"
     assert torch.equal(i_k.age.cpu(), i_p.age), f"{name}: impact age"
+    return err, peak
+
+
+def check_coupled(name, scene, n_samples, invariance=False):
+    """Coupled kernel (CUDA) against the plain version on host copies of the same inputs,
+    at the reference's tolerances, and 2S == S then S on the card. Returns the stats."""
+    import torch
+
+    from mesheditor_tpu_torch.synth import coupled
+
+    r = coupled_slots(scene)
+    before = coupled.LAUNCHES
+    kernel = coupled.render_block_coupled(*make_coupled(scene, "cuda"), n_samples, 1.0, 1.0,
+                                          1.0, r)
+    torch.cuda.synchronize()
+    assert coupled.LAUNCHES == before + 1, f"{name}: kernel not launched"
+    err, peak = coupled_parity(name, kernel, coupled.render_block_coupled(
+        *make_coupled(scene, "cpu"), n_samples, 1.0, 1.0, 1.0, r))
     stats = {"max_abs_err": err, "rel_err": err / peak, "peak": peak}
     if invariance:
         sc = make_coupled(scene, "cuda")
@@ -663,7 +721,7 @@ def bench_box(resolution=(18, 10, 9)):
     return mesh, cfg, excite
 
 
-def host_oracle(mesh, n_eig: int, sigma: float) -> np.ndarray:
+def host_oracle(mesh, n_eig: int, sigma: float, material=None) -> np.ndarray:
     """Lowest n_eig eigenvalues of the port's own assembled pencil by scipy shift-invert
     Lanczos on the host (independent of the device engine)."""
     import scipy.sparse.linalg as spla
@@ -675,7 +733,8 @@ def host_oracle(mesh, n_eig: int, sigma: float) -> np.ndarray:
 
     kept = filter_degenerate(mesh.points, mesh.tets)
     quad = build_quad_mesh(kept, mesh.points.shape[0])
-    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad, device="cpu")
+    ops = assemble_element_matrices(mesh.points, kept, material or CERAMIC.properties, quad,
+                                    device="cpu")
     k, m = _pencil_csr(ops)
     vals = spla.eigsh(k, k=n_eig, M=m, sigma=sigma, which="LM", return_eigenvectors=False)
     return np.sort(vals)
@@ -730,10 +789,529 @@ def coupled_kernel_phase(card: str) -> dict:
     return coupled_t
 
 
+def surface_phase(device, card: str, tet_resolution: int = 24) -> None:
+    """Phase e: solve_surface on the bench's production torus, held to the reference's
+    answers and to a host oracle; then the warm path after a Poisson-ratio edit. (A
+    rehearsal off the card passes a coarser tet_resolution.)"""
+    from mesheditor_tpu_torch import SolveReuse, profile
+    from mesheditor_tpu_torch.api import solve_surface
+    from mesheditor_tpu_torch.materials import CERAMIC
+    from mesheditor_tpu_torch.mesh import cdt, torus_surface, voxel_tets
+    from mesheditor_tpu_torch.solve import lobpcg
+    from mesheditor_tpu_torch.solve.orchestration import ModalWarmStart, hash_solve_inputs
+    from mesheditor_tpu_torch.types import ModalSolveSettings
+
+    pts, tris = torus_surface(0.06, 0.025)
+    h = float((pts.max(axis=0) - pts.min(axis=0)).max()) / tet_resolution
+    tet_profile = cdt.TetProfile()
+    t0 = time.perf_counter()
+    tmesh = cdt.generate_tets_delaunay(pts, tris, lattice_h=h, profile=tet_profile)
+    log(f"[surface] mesher alone {time.perf_counter() - t0:.2f} s: {tmesh.points.shape[0]} "
+        f"points, {tmesh.tets.shape[0]} tets; " + json.dumps(asdict(tet_profile)))
+
+    settings = ModalSolveSettings(num_modes=30)  # -> SolverConfig(num_modes=30, num_fem_modes=45)
+    cdt.NATIVE_MESHES = voxel_tets.VOXEL_MESHES = 0
+    lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
+    profile.reset()
+    profile.enabled = True
+    t0 = time.perf_counter()
+    cold = solve_surface(pts, tris, CERAMIC.properties, settings=settings,
+                         tet_resolution=tet_resolution, reuse=SolveReuse(keep_basis=True), device=device)
+    cold_s = time.perf_counter() - t0
+    profile.enabled = False
+    log(f"[surface] solve_surface {cold_s:.3f} s ({card}): {cold.profile.report()}")
+    log(profile.report())
+    assert (cdt.NATIVE_MESHES, voxel_tets.VOXEL_MESHES) == (1, 0), \
+        f"native meshes {cdt.NATIVE_MESHES}, voxel meshes {voxel_tets.VOXEL_MESHES}"
+    assert (lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES) == (1, 0), \
+        f"device solves {lobpcg.DEVICE_SOLVES}, host solves {lobpcg.HOST_SOLVES}"
+    modes = cold.modes
+    f1 = float(modes.freqs[0]) if modes.num_modes else 0.0
+    log(f"[surface] dofs {cold.profile.dofs}, modes {modes.num_modes}, f1 {f1:.4f} Hz, "
+        f"iterations {cold.profile.restarts}, native meshes {cdt.NATIVE_MESHES}, voxel meshes "
+        f"{voxel_tets.VOXEL_MESHES}, device solves {lobpcg.DEVICE_SOLVES}")
+    if cold.profile.dofs == TORUS_DOFS:
+        assert modes.num_modes == TORUS_MODES, f"modes {modes.num_modes} != {TORUS_MODES}"
+        assert abs(f1 - TORUS_F1_HZ) / TORUS_F1_HZ < 1e-4, f"f1 {f1:.4f} Hz vs {TORUS_F1_HZ}"
+    else:
+        log(f"[surface] this machine's build of the mesher gave another mesh: "
+            f"{cold.profile.dofs} dofs against the reference's {TORUS_DOFS}; f1 is held to "
+            f"the oracle on the mesh that was built")
+    assert modes.num_modes > 0 and np.isfinite(modes.freqs).all()
+    t0 = time.perf_counter()
+    ref = host_oracle(tmesh, 16, -((2 * np.pi * settings.min_mode_freq) ** 2))
+    rel_f = np.abs(np.sqrt(cold.summary.eigenvalues[6:16]) / np.sqrt(ref[6:16]) - 1.0)
+    assert rel_f.max() < 1e-5, f"lowest 10 elastic modes off scipy by {rel_f.max():.3e}"
+    log(f"[surface] scipy eigsh {time.perf_counter() - t0:.1f} s on the same mesh: lowest 10 "
+        f"elastic frequencies within {rel_f.max():.3e} relative")
+
+    # The warm path: the basis goes into the app-wide memo under the input hash; a
+    # Poisson-ratio edit keeps the hash, so its re-solve is seeded from the memo.
+    key = hash_solve_inputs(pts, tris, np.zeros((0, 3)), (1.0, 1.0, 1.0))
+    memo = ModalWarmStart()
+    memo.offer(key, cold.basis)
+    edited = replace(CERAMIC.properties, poisson_ratio=0.21)
+    t0 = time.perf_counter()
+    edit_cold = solve_surface(pts, tris, edited, settings=settings,
+                              tet_resolution=tet_resolution, device=device)
+    edit_cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    edit_warm = solve_surface(pts, tris, edited, settings=settings,
+                              tet_resolution=tet_resolution, reuse=SolveReuse(seed_basis=memo.lookup(key)), device=device)
+    edit_warm_s = time.perf_counter() - t0
+    assert edit_warm.modes.num_modes == edit_cold.modes.num_modes > 0
+    drift = float(np.abs(edit_warm.modes.freqs / edit_cold.modes.freqs - 1).max())
+    assert drift < 1e-4, f"warm solve off the cold one by {drift:.3e}"
+    assert edit_warm.profile.restarts <= edit_cold.profile.restarts, \
+        f"warm {edit_warm.profile.restarts} iterations > cold {edit_cold.profile.restarts}"
+    assert lobpcg.HOST_SOLVES == 0, f"host solves {lobpcg.HOST_SOLVES}"
+    log(f"[surface] Poisson 0.19 -> 0.21: cold {edit_cold.profile.restarts} iterations, "
+        f"iterate {edit_cold.profile.iterate:.3f} s, wall {edit_cold_s:.3f} s; warm "
+        f"{edit_warm.profile.restarts} iterations, iterate {edit_warm.profile.iterate:.3f} s, "
+        f"wall {edit_warm_s:.3f} s; frequencies within {drift:.3e} ({card})")
+
+
+def corpus(seed=20261016):
+    """A seeded corpus for batch_solve: boxes, a bar, the torus and an iso-surface blob, each
+    with a material and excitation points drawn from the seed."""
+    from mesheditor_tpu_torch.materials import ACOUSTIC_MATERIALS
+    from mesheditor_tpu_torch.mesh import bar_tets, box_tets, cdt, torus_surface, voxel_tets
+    from mesheditor_tpu_torch.mesh.isosurface import noise_blob_surface
+    from mesheditor_tpu_torch.solve.batch import CorpusItem
+
+    def delaunay(surface, resolution):
+        pts, tris = surface
+        h = float((pts.max(axis=0) - pts.min(axis=0)).max()) / resolution
+        return cdt.generate_tets_delaunay(pts, tris, lattice_h=h)
+
+    meshes = {
+        "box_wide": box_tets((0.3, 0.16, 0.15), (12, 7, 6)),
+        "box_cube": box_tets((0.2, 0.2, 0.2), (8, 8, 8)),
+        "box_plate": box_tets((0.25, 0.04, 0.12), (14, 3, 8)),
+        "box_small": box_tets((0.1, 0.06, 0.05), (10, 6, 5)),
+        "bar": bar_tets(0.3, 0.03, 0.03, 30, 4, 4),
+        "torus": delaunay(torus_surface(0.06, 0.025), 16),
+        # The Delaunay mesher's recovery cascade on an iso-surface gives a sliver-heavy
+        # mesh of 20-30x the surface's points on which the default-tolerance solve does not
+        # converge in 100 iterations; the voxel mesher's answer solves in 10.
+        "blob": voxel_tets.generate_tets(*noise_blob_surface(seed=3, n=14, scale=0.08),
+                                         resolution=14),
+    }
+    rng = np.random.default_rng(seed)
+    items = []
+    for name, mesh in meshes.items():
+        material = ACOUSTIC_MATERIALS[int(rng.integers(len(ACOUSTIC_MATERIALS)))]
+        excite = mesh.points[rng.choice(mesh.points.shape[0], 8, replace=False)]
+        items.append(CorpusItem(name, mesh, material.properties, excite))
+    return items
+
+
+def store_batch_phase(device, card: str, items=None) -> None:
+    """Phase f: a corpus through batch_solve into a temporary store, reloaded, resumed, and
+    one padded solve against its unpadded solve. (A rehearsal off the card passes a part
+    of the corpus.)"""
+    from mesheditor_tpu_torch import SolverConfig, mesh2modes
+    from mesheditor_tpu_torch.io.model_store import load_modal_model, modal_model_key
+    from mesheditor_tpu_torch.solve import lobpcg
+    from mesheditor_tpu_torch.solve.batch import _round_up, batch_solve, pad_tetmesh
+
+    items = items or corpus()
+    cfg = SolverConfig(num_modes=30, num_fem_modes=45, max_mode_freq=48_000.0)
+    buckets = dict(point_bucket=512, tet_bucket=2048)
+    keys = {(_round_up(i.mesh.points.shape[0], 512), _round_up(i.mesh.tets.shape[0], 2048))
+            for i in items}
+    assert len(items) >= 6 and len(keys) >= 2, f"{len(items)} items in {len(keys)} buckets"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as store:
+        lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
+        t0 = time.perf_counter()
+        rows = batch_solve(items, store, cfg, device=device, **buckets)
+        batch_s = time.perf_counter() - t0
+        by_name = {i.name: i for i in items}
+        for r in rows:
+            mesh = by_name[r.name].mesh
+            log(f"[batch] {r.name}: {mesh.points.shape[0]} points, {mesh.tets.shape[0]} tets, "
+                f"modes {r.num_modes}, f1 {r.f1_hz:.2f} Hz, {r.iterations} iterations, "
+                f"{r.solve_seconds:.3f} s")
+            assert r.path is not None and r.num_modes > 0, f"{r.name}: no modes"
+            modes, mass = load_modal_model(r.path)
+            assert modal_model_key(modes, mass) == r.path.stem, f"{r.name}: reloaded != saved"
+            assert modes.num_modes == r.num_modes and float(modes.freqs[0]) == r.f1_hz, r.name
+        solves = (lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES)
+        assert sum(solves) == len(items), f"solves {solves} for {len(items)} items"
+        files = sorted(os.listdir(store))
+        t0 = time.perf_counter()
+        again = batch_solve(items, store, cfg, device=device, **buckets)
+        again_s = time.perf_counter() - t0
+        assert sorted(os.listdir(store)) == files, "the second run wrote a file"
+        assert (lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES) == solves, "the second run solved"
+        assert [(r.name, r.path, r.num_modes, r.f1_hz) for r in again] == \
+            [(r.name, r.path, r.num_modes, r.f1_hz) for r in rows]
+        # One padded solve against its unpadded solve (the same device engine both times),
+        # and what the padding costs: both solved again in turns, each timed.
+        item = by_name["box_wide"]
+        stored, _mass = load_modal_model(next(r.path for r in rows if r.name == "box_wide"))
+        n_pts, n_tets = item.mesh.points.shape[0], item.mesh.tets.shape[0]
+        padded = pad_tetmesh(item.mesh, _round_up(n_pts, 512), _round_up(n_tets, 2048))
+        timed = {"unpadded": [], "padded": []}
+        for label in ("unpadded", "padded", "padded", "unpadded"):
+            t0 = time.perf_counter()
+            res = mesh2modes(item.mesh if label == "unpadded" else padded, item.material,
+                             item.excite_positions, config=cfg, device=device)
+            timed[label].append(time.perf_counter() - t0)
+            assert res.modes.num_modes == stored.num_modes, label
+            err = float(np.abs(stored.freqs / res.modes.freqs - 1).max())
+            if label == "unpadded":
+                pad_err = err
+                assert pad_err < 1e-6, f"padded solve off the unpadded one by {pad_err:.3e}"
+            else:  # the padded pencil solved again: what a rerun without the index would store
+                resolve_err = err
+    log(f"[batch] box_wide ({n_pts} points, {n_tets} tets; padded to {padded.points.shape[0]}, "
+        f"{padded.tets.shape[0]}): unpadded solves {timed['unpadded'][0]:.3f} / "
+        f"{timed['unpadded'][1]:.3f} s, padded solves {timed['padded'][0]:.3f} / "
+        f"{timed['padded'][1]:.3f} s (order: unpadded, padded, padded, unpadded); the padded "
+        f"pencil solved again lies {resolve_err:.3e} from the stored model ({card})")
+    log(f"[batch] {len(items)} items in {len(keys)} buckets: {batch_s:.3f} s, device solves "
+        f"{solves[0]}, host solves {solves[1]}; second run {again_s:.3f} s, no solve and no "
+        f"new file; padded against unpadded frequencies within {pad_err:.3e} ({card})")
+
+
+def falling_scene(seed=20261016, n_bodies=8):
+    """A static plane and n_bodies audible dynamic bodies above it: plastic balls (sphere
+    colliders) and wooden blocks (box colliders), thrown sideways so that they strike the
+    plane, then slide or roll, then rest. The first ball starts 3 cm above the plane with no
+    velocity: it strikes and bounces while the others still fall, so its strike rings in
+    blocks with no sustained voice (the impact render), where every later strike lands in a
+    block that some sliding body sends through the coupled render. Returns (registry, body
+    entities)."""
+    from mesheditor_tpu_torch.materials import PLASTIC, WOOD
+    from mesheditor_tpu_torch.mesh import grid_box_surface, icosphere_surface
+    from mesheditor_tpu_torch.scene import components as c
+    from mesheditor_tpu_torch.scene.registry import Registry
+
+    rng = np.random.default_rng(seed)
+    reg = Registry()
+    floor = reg.create()
+    reg.emplace(floor, c.RigidBodyComponent(shape_kind="plane"))
+    # Surfaces about as fine as the tet lattice (bbox/24): the Delaunay mesher keeps the
+    # surface triangles, and triangles much larger than the lattice give flat boundary
+    # tets on which the device eigensolver needs 60-100+ iterations instead of 20-30.
+    ball_pts, ball_tris = icosphere_surface(4)
+    half = np.array([0.08, 0.02, 0.05])
+    block_pts, block_tris = grid_box_surface(8)
+    block_pts = (block_pts - 0.5) * 2.0 * half
+    bodies = []
+    for i in range(n_bodies):
+        e = reg.create()
+        ball = i % 2 == 0
+        material = PLASTIC if ball else WOOD
+        p = material.properties
+        reg.emplace(e, c.MeshSurface(positions=ball_pts * 0.05 if ball else block_pts,
+                                     triangles=ball_tris if ball else block_tris))
+        reg.emplace(e, c.AcousticMaterialRef(
+            name=material.name, density=p.density, young_modulus=p.young_modulus,
+            poisson_ratio=p.poisson_ratio, alpha=p.alpha, beta=p.beta))
+        reg.emplace(e, c.SolveSettingsComponent())
+        position = np.array([0.35 * i - 1.2, rng.uniform(0.15, 0.35), rng.uniform(-0.3, 0.3)])
+        velocity = np.array([rng.uniform(0.8, 2.0), 0.0, rng.uniform(-0.4, 0.4)])
+        spin = rng.normal(0.0, 1.0, 3)
+        if i == 0:
+            position[1], velocity, spin = 0.08, np.zeros(3), np.zeros(3)
+        reg.emplace(e, c.Transform(translation=position))
+        reg.emplace(e, c.RigidBodyComponent(
+            shape_kind="sphere" if ball else "box", radius=0.05, half_extents=half.copy(),
+            is_dynamic=True, mass=0.54 if ball else 0.48, linear_velocity=velocity,
+            angular_velocity=spin))
+        bodies.append(e)
+    return reg, bodies
+
+
+@contextlib.contextmanager
+def timed_methods(*targets):
+    """Wrap each (class, method name) so that every call's (start, end) on the host clock
+    lands in the yielded {"Class.method": [...]}; the methods are restored on exit."""
+    spans: dict[str, list] = {}
+    saved = []
+    for cls, name in targets:
+        inner = getattr(cls, name)
+        rec = spans.setdefault(f"{cls.__name__}.{name}", [])
+
+        def wrapper(*args, _inner=inner, _rec=rec, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _inner(*args, **kwargs)
+            finally:
+                _rec.append((t0, time.perf_counter()))
+
+        saved.append((cls, name, inner))
+        setattr(cls, name, wrapper)
+    try:
+        yield spans
+    finally:
+        for cls, name, inner in saved:
+            setattr(cls, name, inner)
+
+
+def _on_host(arg):
+    """A host copy of a dataclass of tensors (a bank, a table, the pool); anything else as
+    it is."""
+    import torch
+
+    if not is_dataclass(arg):
+        return arg
+    copy = {}
+    for f in fields(arg):
+        value = getattr(arg, f.name)
+        copy[f.name] = value.detach().cpu().clone() if isinstance(value, torch.Tensor) else value
+    return type(arg)(**copy)
+
+
+@contextlib.contextmanager
+def blocks_against_plain():
+    """While open, every block a ModalSynth renders is rendered twice: by the engine's own
+    call, and by the same function on host copies of the same arguments, taken before the
+    call, where the wrapper runs the kernel's plain version. The two are held to the
+    kernels' tolerances (impact_parity, coupled_parity), with the state's absolute
+    tolerance taken against the block's largest state value: a scene's modes ring at
+    amplitudes far apart. Yields {"impact": {...}, "coupled": {...}}: the blocks checked
+    and those of them that sound, the worst error relative to its block's peak, and the
+    largest shapes seen. The host
+    copies launch nothing, so the launch counts are those of the engine's calls."""
+    from mesheditor_tpu_torch.synth import engine
+
+    stats = {kind: {"blocks": 0, "max_abs_err": 0.0, "max_rel_err": 0.0, "bank": None,
+                    "slots": 0, "live_impacts": 0, "live_voices": 0, "voices_per_object": 0,
+                    "sounding_blocks": 0}
+             for kind in ("impact", "coupled")}
+    inner = {"impact": engine.render_block_impacts, "coupled": engine.render_block_coupled}
+
+    def checked(kind):
+        def render(*args):
+            host = [_on_host(a) for a in args]
+            got = inner[kind](*args)
+            want = inner[kind](*host)
+            st = stats[kind]
+            name = f"scene {kind} block {st['blocks']}"
+            z_peak = float(max(want[0].z_re.abs().max(), want[0].z_im.abs().max()))
+            if kind == "impact":
+                err, peak = impact_parity(name, got, want, state_atol=1e-9 + 1e-6 * z_peak)
+                st["slots"] = max(st["slots"], args[5])
+            else:
+                err, peak = coupled_parity(name, got, want, state_scale=max(
+                    float(want[3].abs().max()), z_peak))
+                st["slots"] = max(st["slots"], args[9])
+                st["live_voices"] = max(st["live_voices"], int(host[3].active.sum()))
+                st["voices_per_object"] = max(st["voices_per_object"], args[10])
+            st["blocks"] += 1
+            st["sounding_blocks"] += peak > 1e-30
+            st["bank"] = list(args[0].coeff_re.shape)
+            st["live_impacts"] = max(st["live_impacts"], int(host[2].active.sum()))
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if peak > 1e-30:
+                st["max_rel_err"] = max(st["max_rel_err"], err / peak)
+            return got
+
+        return render
+
+    engine.render_block_impacts = checked("impact")
+    engine.render_block_coupled = checked("coupled")
+    try:
+        yield stats
+    finally:
+        engine.render_block_impacts = inner["impact"]
+        engine.render_block_coupled = inner["coupled"]
+
+
+def solve_spread(models) -> dict:
+    """How far repeated solves of one request lie apart, each against the first: the
+    largest relative frequency difference, and of the mode shapes at the sample points the
+    modes that agree, agree after a sign flip, or do neither (a multiplet's basis turned),
+    at 1e-3 of the mode's largest component."""
+    first = models[0]
+    out = {"modes": int(first.num_modes), "freq_rel": 0.0, "same": 0, "flipped": 0, "turned": 0,
+           "f_hz": [round(float(f), 2) for f in first.freqs[:10]]}
+    a = np.asarray(first.shapes, np.float64)  # (P, K, 3)
+    scale = np.abs(a).max(axis=(0, 2)) + 1e-300
+    for other in models[1:]:
+        if other.num_modes != first.num_modes:
+            out["modes"] = [out["modes"], int(other.num_modes)]
+            continue
+        out["freq_rel"] = max(out["freq_rel"], float(np.abs(other.freqs / first.freqs - 1).max()))
+        b = np.asarray(other.shapes, np.float64)
+        same = np.abs(a - b).max(axis=(0, 2)) < 1e-3 * scale
+        flipped = ~same & (np.abs(a + b).max(axis=(0, 2)) < 1e-3 * scale)
+        out["same"] += int(same.sum())
+        out["flipped"] += int(flipped.sum())
+        out["turned"] += int((~same & ~flipped).sum())
+    return out
+
+
+def scene_phase(device, card: str, tet_resolution: int = 24) -> dict:
+    """Phase g: SceneAudio's reconcile cycle and simulate_scene on the falling scene.
+    Returns, for each kernel, its launches in the simulate_scene run and the parity record
+    of the checked second run. (A rehearsal off the card
+    passes a coarser tet_resolution.)"""
+    import torch
+
+    from mesheditor_tpu_torch.mesh import cdt, voxel_tets
+    from mesheditor_tpu_torch.physics import AudioContactBridge, PhysicsWorld
+    from mesheditor_tpu_torch.scene import components as c
+    from mesheditor_tpu_torch.scene.audio_sync import SceneAudio, simulate_scene
+    from mesheditor_tpu_torch.solve import lobpcg
+    from mesheditor_tpu_torch.synth import ModalSynth, coupled, impact
+
+    reg, bodies = falling_scene()
+    start = {e: reg.get(e, c.Transform).translation.copy() for e in bodies}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as store:
+        cdt.NATIVE_MESHES = voxel_tets.VOXEL_MESHES = 0
+        lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
+        sa = SceneAudio(reg, store, tet_resolution=tet_resolution, device=device)
+        t0 = time.perf_counter()
+        first = sa.reconcile()
+        reconcile_s = time.perf_counter() - t0
+        assert first.solved == bodies, f"solved {first.solved}, not every body once"
+        assert lobpcg.DEVICE_SOLVES == len(bodies) and lobpcg.HOST_SOLVES == 0, \
+            f"device solves {lobpcg.DEVICE_SOLVES}, host solves {lobpcg.HOST_SOLVES}"
+        assert (cdt.NATIVE_MESHES, voxel_tets.VOXEL_MESHES) == (len(bodies), 0), \
+            f"native meshes {cdt.NATIVE_MESHES}, voxel meshes {voxel_tets.VOXEL_MESHES}"
+        for e in bodies[:2]:
+            m = sa._live[e].modes
+            log(f"[scene] entity {e} ({reg.get(e, c.AcousticMaterialRef).name}): "
+                f"{m.num_modes} modes, f1 {float(m.freqs[0]):.1f} Hz, mass "
+                f"{sa._live[e].mass.mass:.3f} kg")
+        assert all(sa._live[e].modes.num_modes > 0 for e in bodies), "a body has no modes"
+        for kind, same in (("ball", bodies[0::2]), ("block", bodies[1::2])):
+            log(f"[scene] the {len(same)} solves of the one {kind} request: "
+                + json.dumps(solve_spread([sa._live[e].modes for e in same])))
+        assert sa.reconcile().up_to_date == bodies, "second reconcile not all up to date"
+        # A density edit is an exact rescale: no eigensolve.
+        reg.get(bodies[0], c.AcousticMaterialRef).density *= 1.1
+        f_before = sa._live[bodies[0]].modes.freqs.copy()
+        edit = sa.reconcile()
+        assert edit.rescaled == [bodies[0]] and not edit.solved, f"density edit: {edit}"
+        assert lobpcg.DEVICE_SOLVES == len(bodies) and lobpcg.HOST_SOLVES == 0
+        ratio = float(np.median(sa._live[bodies[0]].modes.freqs / f_before))
+        assert abs(ratio - 1.1 ** -0.5) < 1e-3, f"rescaled frequencies moved by {ratio}"
+        # A fresh coordinator over the same registry and store loads everything.
+        fresh = SceneAudio(reg, store, tet_resolution=tet_resolution,
+                           device=device).reconcile()
+        assert fresh.loaded == bodies and not fresh.solved, f"fresh SceneAudio: {fresh}"
+        log(f"[scene] reconcile: {len(bodies)} bodies solved in {reconcile_s:.3f} s (native "
+            f"meshes {cdt.NATIVE_MESHES}, voxel meshes 0, device solves {lobpcg.DEVICE_SOLVES}, "
+            f"host solves 0); second reconcile all up to date; density edit rescaled (x"
+            f"{ratio:.5f}) with no solve; a fresh SceneAudio loaded all {len(bodies)} ({card})")
+
+        impact.LAUNCHES = coupled.LAUNCHES = 0
+        with timed_methods((PhysicsWorld, "step"), (AudioContactBridge, "on_impacts"),
+                           (AudioContactBridge, "resolve_voices"),
+                           (ModalSynth, "publish_voices"), (ModalSynth, "render")) as spans:
+            t0 = time.perf_counter()
+            audio = simulate_scene(reg, store, seconds=1.0, sample_rate=48_000.0,
+                                   block_size=512, tet_resolution=tet_resolution, device=device)
+            scene_s = time.perf_counter() - t0
+        launches = {"impact": impact.LAUNCHES, "coupled": coupled.LAUNCHES}
+        # The same scene again from the stored models (nothing is solved), this time with
+        # every block also rendered by the plain version on host copies of its inputs.
+        reg2, bodies2 = falling_scene()
+        reg2.get(bodies2[0], c.AcousticMaterialRef).density *= 1.1
+        for e, e2 in zip(bodies, bodies2):  # a reloaded scene: each body names its model
+            reg2.emplace(e2, replace(reg.get(e, c.ModalModel)))
+        with blocks_against_plain() as parity:
+            t0 = time.perf_counter()
+            audio2 = simulate_scene(reg2, store, seconds=1.0, sample_rate=48_000.0,
+                                    block_size=512, tet_resolution=tet_resolution,
+                                    device=device)
+            checked_s = time.perf_counter() - t0
+        checked = {k: parity[k]["blocks"] for k in parity}
+        assert checked == launches, f"checked blocks {checked} against launches {launches}"
+        assert parity["impact"]["live_impacts"] > 0 and parity["impact"]["sounding_blocks"] > 0, \
+            "no strike went through the impact render"
+        assert parity["coupled"]["live_voices"] > 0 and parity["coupled"]["live_impacts"] > 0
+        assert (impact.LAUNCHES, coupled.LAUNCHES) == (2 * launches["impact"],
+                                                       2 * launches["coupled"])
+        rerun_diff = float(np.abs(audio2 - audio).max())
+    assert lobpcg.DEVICE_SOLVES == len(bodies) and lobpcg.HOST_SOLVES == 0, \
+        "simulate_scene solved again"
+    assert voxel_tets.VOXEL_MESHES == 0 and cdt.NATIVE_MESHES == len(bodies)
+    blocks = 94
+    assert audio.shape == (blocks * 512,) and np.isfinite(audio).all(), "scene audio not finite"
+    assert np.abs(audio).max() > 0, "scene audio silent"
+    assert launches["impact"] > 0 and launches["coupled"] > 0, f"kernel launches {launches}"
+    assert launches["impact"] + launches["coupled"] == blocks, f"{launches} over {blocks} blocks"
+    for e in bodies:
+        t = reg.get(e, c.Transform).translation
+        assert 0.0 < t[1] < start[e][1], f"entity {e} pose {t}"
+        assert e == bodies[0] or t[0] != start[e][0], f"entity {e} did not travel: {t}"
+    ends = np.array([end for _t0, end in spans["ModalSynth.render"]])
+    assert ends.size == blocks
+    walls = np.diff(np.concatenate([[spans["PhysicsWorld.step"][0][0]], ends])) * 1e3
+
+    def per_block(name):
+        """Host milliseconds of `name` calls inside each block (a block ends with its
+        render call's return)."""
+        out = np.zeros(blocks)
+        for a, b in spans[name]:
+            out[min(int(np.searchsorted(ends, b)), blocks - 1)] += (b - a) * 1e3
+        return out
+
+    step, bridge = per_block("PhysicsWorld.step"), (per_block("AudioContactBridge.on_impacts")
+                                                    + per_block("AudioContactBridge.resolve_voices"))
+    render = per_block("ModalSynth.publish_voices") + per_block("ModalSynth.render")
+    log(f"[scene] plane + {len(bodies)} bodies, 1 s at 48 kHz in {blocks} blocks of 512: rms "
+        f"{float(np.sqrt((audio.astype(np.float64) ** 2).mean())):.6e}, peak "
+        f"{float(np.abs(audio).max()):.3e}; impact launches {launches['impact']}, coupled "
+        f"launches {launches['coupled']} (one kernel launch per block); "
+        f"{len(spans['PhysicsWorld.step'])} physics steps")
+    log(f"[scene] every block of the same scene, run again from the stored models, against "
+        f"the plain version on host copies of its inputs ({checked_s:.3f} s): "
+        + json.dumps(parity) + f"; max |second run - first run| {rerun_diff:.3e} ({card})")
+    log(f"[scene] per-block wall median {float(np.median(walls)):.3f} ms, largest "
+        f"{float(walls.max()):.3f} ms against the {BLOCK_DEADLINE_MS:.3f} ms deadline; host "
+        f"per block (median / largest): world.step {float(np.median(step)):.3f} / "
+        f"{float(step.max()):.3f} ms, bridge {float(np.median(bridge)):.3f} / "
+        f"{float(bridge.max()):.3f} ms, publish + render call {float(np.median(render)):.3f} / "
+        f"{float(render.max()):.3f} ms; shares of the loop: world.step "
+        f"{float(step.sum() / walls.sum()):.3f}, bridge {float(bridge.sum() / walls.sum()):.3f}, "
+        f"publish + render {float(render.sum() / walls.sum()):.3f}; simulate_scene "
+        f"{scene_s:.3f} s in all ({card})")
+    return {kind: {"launches": launches[kind], **parity[kind]} for kind in launches}
+
+
+def cli_phase() -> None:
+    """Phase h: the command line as subprocesses, on the card (its default device)."""
+    from mesheditor_tpu_torch.mesh import save_obj, torus_surface
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        obj = Path(tmp) / "torus.obj"
+        save_obj(obj, *torus_surface(0.06, 0.025, 24, 12))
+
+        def run(*argv):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "mesheditor_tpu_torch", *argv],
+                                  cwd=REPO, capture_output=True, text=True, timeout=600)
+            assert proc.returncode == 0, f"{argv[0]} exited {proc.returncode}:\n{proc.stderr}"
+            log(f"[cli] {argv[0]} ({time.perf_counter() - t0:.1f} s): "
+                + " | ".join(proc.stdout.replace("\r", "\n").strip().splitlines()[-4:]))
+            return proc.stdout
+
+        out = run("solve", str(obj), "--material", "Glass", "--modes", "20", "--vertices", "8",
+                  "--max-freq", "48000", "--tet-resolution", "14", "--out-dir",
+                  str(Path(tmp) / "modal"))
+        model = out.rsplit("model -> ", 1)[1].strip()
+        assert Path(model).exists(), f"solve named {model}, which is not there"
+        assert "modes: 20" in run("info", model)
+        wav = Path(tmp) / "torus.wav"
+        run("render", model, "--out", str(wav), "--seconds", "1.0")
+        assert wav.stat().st_size > 48_000, "render wrote a short wav"
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernels", action="store_true",
-                        help="only the kernels against their plain versions, and their times")
+    only = parser.add_mutually_exclusive_group()
+    only.add_argument("--kernels", action="store_true",
+                      help="only the kernels against their plain versions, and their times")
+    only.add_argument("--scene", action="store_true",
+                      help="only the scene-in / audio-out phases (surface, store_batch, "
+                           "scene, cli)")
     args = parser.parse_args()
     try:
         import torch
@@ -765,6 +1343,18 @@ def main() -> int:
         f"(nvcc {_build.BUILD_SECONDS:.2f} s) at {_build.library_path().relative_to(REPO)}")
     for line in ptxas_summary(_build.BUILD_LOG):
         log(f"[build] {line}")
+    t0 = time.perf_counter()
+    _build.load_tetmesher()
+    log(f"[build] tet mesher ready in {time.perf_counter() - t0:.2f} s at "
+        f"{_build.mesher_path().relative_to(REPO)}")
+
+    if args.scene:
+        surface_phase(device, card)
+        store_batch_phase(device, card)
+        scene_phase(device, card)
+        cli_phase()
+        log("scene: ok")
+        return 0
 
     # 3. kernel vs plain on the card
     from mesheditor_tpu_torch.synth import impact
@@ -828,7 +1418,6 @@ def main() -> int:
     log(f"[oracle] scipy eigsh {time.perf_counter() - t0:.1f} s: lowest 20 elastic "
         f"frequencies within {rel_f.max():.3e} relative")
 
-
     t0 = time.perf_counter()
     audio = render_main(result, device)
     torch.cuda.synchronize()
@@ -887,6 +1476,12 @@ def main() -> int:
     else:
         log(f"[profile] sustained frame loop ({card}): " + json.dumps(prof))
 
+    # (e)-(h) the scene-in / audio-out path
+    surface_phase(device, card)
+    store_batch_phase(device, card)
+    scene_kernels = scene_phase(device, card)
+    cli_phase()
+
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
         f"{block_median:.3f} ({card})")
@@ -896,14 +1491,20 @@ def main() -> int:
         "name": "impact_resonator", "route": "cuda",
         "source": "mesheditor_tpu_torch/csrc/impact_resonator.cu",
         "replaces": "mesheditor_tpu/synth/pallas_impact.py:48",
-        "launches": launches, "max_abs_err": bench_stats["max_abs_err"],
+        "launches": launches, "scene_launches": scene_kernels["impact"]["launches"],
+        "scene_max_abs_err": scene_kernels["impact"]["max_abs_err"],
+        "scene_max_rel_err": scene_kernels["impact"]["max_rel_err"],
+        "max_abs_err": bench_stats["max_abs_err"],
         "ms": bench_stats["ms"], "plain_ms": bench_stats["plain_ms"],
         "bound_ms": imp_bound, "bound_by": imp_by, "library_ms": None,
     }, {
         "name": "coupled_resonator", "route": "cuda",
         "source": "mesheditor_tpu_torch/csrc/coupled_resonator.cu",
         "replaces": "mesheditor_tpu/synth/pallas_coupled.py:40",
-        "launches": coupled_launches, "max_abs_err": c512["max_abs_err"],
+        "launches": coupled_launches, "scene_launches": scene_kernels["coupled"]["launches"],
+        "scene_max_abs_err": scene_kernels["coupled"]["max_abs_err"],
+        "scene_max_rel_err": scene_kernels["coupled"]["max_rel_err"],
+        "max_abs_err": c512["max_abs_err"],
         "ms": c512["ms"], "plain_ms": c512["plain_ms"],
         "bound_ms": c512["bound_ms"], "bound_by": c512["bound_by"], "library_ms": None,
     }]}))

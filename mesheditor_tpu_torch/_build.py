@@ -1,10 +1,15 @@
-"""Build and load the package's hand-written CUDA kernels.
+"""Build and load the package's native code: the hand-written CUDA kernels and the
+Delaunay tet mesher.
 
 The sources under csrc/ are compiled at first use by nvcc, one process per source, all
 started together, then linked into one shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds) and loaded with ctypes. The library lands in
 build/kernels/<hash>/ at the repository root, keyed by a hash of the sources and flags, so
 an edited source rebuilds and an unchanged one loads as is.
+
+The tet mesher (native/tetmesher.cpp, read only) is compiled the same way by the host C++
+compiler into build/native/<hash>/: nothing is written beside the source, and the
+checked-in native/libtetmesher.so, built on some other machine, is never loaded.
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
+_MESHER_SOURCE = _PKG.parent / "native" / "tetmesher.cpp"
+_MESHER_ROOT = _PKG.parent / "build" / "native"
+CXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")  # native/Makefile's flags
+
 _LIB = None
+_MESHER = None
 BUILD_SECONDS = 0.0  # wall time of the build this process did (0 when it loaded a cached one)
 BUILD_LOG = ""  # nvcc's output for that build (ptxas register / shared-memory report)
 
@@ -96,4 +106,60 @@ def load_kernels() -> ctypes.CDLL:
     lib.coupled_resonator_plan.argtypes = [i32, i32, i32, ptr]
     lib.coupled_resonator_plan.restype = i32
     _LIB = lib
+    return lib
+
+
+def _cxx() -> str:
+    for name in (os.environ.get("CXX"), "g++", "c++", "clang++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found (set CXX or put g++ on PATH) — the tet mesher "
+                       "is built from native/tetmesher.cpp at first use")
+
+
+def mesher_path(source: Path = _MESHER_SOURCE) -> Path:
+    """Where the library for `source` lives: keyed by the source, the flags and the
+    compiler's version, so a build/ directory carried to a machine with another compiler
+    is not picked up there."""
+    cxx = _cxx()
+    version = subprocess.run([cxx, "--version"], capture_output=True, text=True).stdout
+    h = hashlib.sha256()
+    h.update(source.read_bytes())
+    h.update(" ".join((cxx, version, *CXX_FLAGS)).encode())
+    return _MESHER_ROOT / h.hexdigest()[:16] / "libtetmesher.so"
+
+
+def build_tetmesher(source: Path = _MESHER_SOURCE) -> Path:
+    """The mesher library for `source`, compiled unless its build is already there. Raises
+    with the compiler's output when the source is missing or does not compile."""
+    if not source.exists():
+        raise RuntimeError(f"tet mesher source not found: {source}")
+    out = mesher_path(source)
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        tmp_out = Path(tmp) / out.name
+        proc = subprocess.run([_cxx(), *CXX_FLAGS, "-o", str(tmp_out), str(source)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"building {source.name} failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp_out, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+def load_tetmesher() -> ctypes.CDLL:
+    """The tet mesher library, built on first use. Raises when it cannot be built or
+    loaded; a caller must not take that for a surface the mesher could not mesh."""
+    global _MESHER
+    if _MESHER is not None:
+        return _MESHER
+    lib = ctypes.CDLL(str(build_tetmesher()))
+    u64, f64 = ctypes.c_uint64, ctypes.c_double
+    pd, pu32, pu64 = (ctypes.POINTER(t) for t in (f64, ctypes.c_uint32, u64))
+    lib.tetmesh_delaunay.restype = ctypes.c_int
+    lib.tetmesh_delaunay.argtypes = [pd, u64, pu32, u64, f64, f64, pd, pu32, pu64, pd, pu64, pd]
+    _MESHER = lib
     return lib

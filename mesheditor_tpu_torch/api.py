@@ -1,6 +1,17 @@
-"""Top-level convenience API (counterpart of mesheditor_tpu/api.py): `make_synth`, the
-contact dynamics of a solved model and the Hertz strike. Surface meshing
-(`solve_surface`) comes with the solve-input slice."""
+"""High-level API (counterpart of mesheditor_tpu/api.py): the solve-input pipeline and the
+strike-render surface.
+
+mesh in (obj/primitive + material) -> modal model -> rendered waveform:
+
+    result = solve_surface(positions, tris, material.properties)   # or mesh2modes(tets, ..)
+    synth  = make_synth([result])
+    strike(synth, 0, 0, result, direction)
+    wav    = synth.render_seconds(1.0)
+
+Mirrors the reference's LaunchModalSolve pipeline (simplify -> tets -> solve -> postprocess,
+src/audio/AudioSystem.cpp:1066-1152) and the strike dispatch (TriggerModalStrike,
+:709-768), minus the interactive scene layer (see scene/).
+"""
 
 from __future__ import annotations
 
@@ -8,11 +19,86 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .solve.mesh2modes import ModalResult
+from . import profile
+from ._device import resolve_device
+from .mesh.cdt import generate_tets_delaunay
+from .mesh.halfedge import build_halfedge
+from .mesh.simplify import simplify_surface
+from .mesh.voxel_tets import generate_tets
+from .solve.mesh2modes import ModalResult, SolveReuse, mesh2modes
 from .synth.contact import (ContactDynamics, Striker, estimate_contact_time,
                             inverse_inertia_tensor, striker_impactor)
 from .synth.engine import ModalSynth
-from .types import AcousticMaterialProperties, ModalModes
+from .types import AcousticMaterialProperties, ModalModes, ModalSolveSettings, SolverConfig
+
+
+def solve_surface(
+    positions: np.ndarray,
+    tris: np.ndarray,
+    material: AcousticMaterialProperties,
+    excite_positions: Optional[np.ndarray] = None,
+    settings: ModalSolveSettings = ModalSolveSettings(),
+    baked_scale=(1.0, 1.0, 1.0),
+    tet_resolution: int = 24,
+    reuse: SolveReuse = SolveReuse(),
+    cancelled=None,
+    progress=None,
+    verbose=None,
+    device="cuda",
+) -> ModalResult:
+    """The full solve-input pipeline: simplify -> tetrahedralize -> FEM modal solve on
+    `device`.
+
+    Tetrahedralization prefers the native Delaunay mesher (surface vertices and skin
+    preserved exactly; `settings.quality_tets` enables circumradius/edge <= 2 refinement,
+    the reference's optional -q mode, Tetrahedralize.h:18-21). A surface it cannot mesh
+    (its ValueError) goes to the voxel mesher; a mesher library that cannot be built or
+    loaded raises instead, so the two are never mistaken for each other.
+    `mesh.cdt.NATIVE_MESHES` and `mesh.voxel_tets.VOXEL_MESHES` count which one answered."""
+    device = resolve_device(device)
+    if settings.solve_resolution < 1.0:
+        with profile.scope("solve/simplify"):
+            positions, tris = simplify_surface(positions, tris, settings.solve_resolution)
+    with profile.scope("solve/tetrahedralize"):
+        tets = _tetrahedralize(positions, tris, tet_resolution, settings.quality_tets)
+    if excite_positions is None:
+        # Evenly spaced surface vertices, as the reference picks when none are assigned
+        # (AudioSystem.cpp:953-957).
+        idx = np.linspace(0, positions.shape[0] - 1, settings.num_vertices).astype(int)
+        excite_positions = positions[idx]
+    config = SolverConfig(
+        min_mode_freq=settings.min_mode_freq,
+        max_mode_freq=settings.max_mode_freq,
+        num_modes=settings.num_modes,
+        num_fem_modes=max(settings.num_modes + 15, settings.num_modes * 3 // 2),
+    )
+    with profile.scope("solve/mesh2modes", sync=device):
+        return mesh2modes(
+            tets, material, excite_positions, baked_scale, config, reuse, cancelled,
+            progress, verbose=verbose, device=device,
+        )
+
+
+def _tetrahedralize(positions, tris, tet_resolution: int, quality_tets: bool):
+    lo = np.asarray(positions, np.float64).min(axis=0)
+    hi = np.asarray(positions, np.float64).max(axis=0)
+    h = float((hi - lo).max()) / max(tet_resolution, 1)
+    try:
+        return generate_tets_delaunay(positions, tris, lattice_h=h,
+                                      quality_bound=2.0 if quality_tets else 0.0)
+    except ValueError:
+        pass  # not meshable by the Delaunay mesher: the voxel mesher gets its try
+    try:
+        return generate_tets(positions, tris, resolution=tet_resolution)
+    except ValueError as exc:
+        # Diagnose the failure with topology before re-raising (the reference returns
+        # tetrahedralization error strings, Tetrahedralize.h:44-60): open boundaries are
+        # the usual cause of "no interior".
+        nb = int(np.asarray(build_halfedge(positions, tris).boundary_halfedges()).size)
+        if nb:
+            raise ValueError(f"tetrahedralization failed: surface is not closed "
+                             f"({nb} boundary half-edges); {exc}") from exc
+        raise
 
 
 def make_synth(

@@ -1,7 +1,13 @@
 """Build the port's objects from the reference package's state, handed over as numpy arrays
-(np.asarray of each JAX field), so that both packages can be fed identical inputs."""
+(np.asarray of each JAX field) or as the reference's own host-side dataclasses (rebuilt by
+class and field name, `from_reference`), so that both packages can be fed identical inputs.
+Nothing of the reference package is imported here: its objects are only read."""
 
 from __future__ import annotations
+
+import dataclasses
+import enum
+import importlib
 
 import numpy as np
 import torch
@@ -76,3 +82,54 @@ def modal_modes(*, freqs, t60s, shapes, positions=None,
     if positions is not None:
         modes.positions = np.asarray(positions, np.float32).reshape(-1, 3)
     return modes
+
+
+# Modules whose dataclasses and enums have a same-named counterpart in the reference.
+_COUNTERPART_MODULES = ("types", "scene.components", "scene.animation", "scene.armature",
+                        "solve.postprocess", "solve.mesh2modes", "solve.orchestration")
+
+
+def _counterpart(name: str) -> type:
+    for mod in _COUNTERPART_MODULES:
+        cls = getattr(importlib.import_module(f"{__package__}.{mod}"), name, None)
+        if isinstance(cls, type):
+            return cls
+    raise TypeError(f"no counterpart of the reference's {name} in {__package__}")
+
+
+def from_reference(obj):
+    """The port's copy of a host-side reference object: a dataclass (a component, a
+    ModalResult, ModalModes, MassProperties, ...) becomes the port's class of the same name
+    with every field converted in turn, an enum member the same-named member, an array a
+    numpy copy; containers are walked and anything else is returned as it is."""
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = _counterpart(type(obj).__name__)
+        return cls(**{f.name: from_reference(getattr(obj, f.name))
+                      for f in dataclasses.fields(cls) if f.init})
+    if isinstance(obj, enum.Enum):
+        return _counterpart(type(obj).__name__)[obj.name]
+    if isinstance(obj, (np.ndarray, np.generic)) or hasattr(obj, "__array__"):
+        return np.array(obj)
+    if isinstance(obj, dict):
+        return {k: from_reference(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(from_reference(v) for v in obj)
+    return obj
+
+
+def registry(entities: dict):
+    """The port's Registry from a reference Registry's state, given as
+    {entity: [component, ...]}. Entity ids are kept, so reports that list entities compare
+    equal across the packages."""
+    from .scene.registry import Registry
+
+    reg = Registry()
+    for _ in range(max(entities, default=0)):
+        e = reg.create()
+        if e not in entities:
+            reg.destroy(e)
+    for e, components in entities.items():
+        for comp in components:
+            reg.emplace(e, from_reference(comp))
+    reg.drain_events()
+    return reg

@@ -1,5 +1,5 @@
-"""Physics types and the physics -> audio bridge (counterpart of mesheditor_tpu/physics;
-the rigid-body world itself is not ported yet)."""
+"""The rigid-body world, its types and the physics -> audio bridge (counterpart of
+mesheditor_tpu/physics)."""
 
 from .types import (
     BodyHandle,
@@ -13,6 +13,7 @@ from .types import (
     ShapeSphere,
     SustainedContact,
 )
+from .world import PhysicsWorld
 from .bridge import AudioContactBridge
 
 __all__ = [
@@ -26,5 +27,6 @@ __all__ = [
     "ShapePlane",
     "ShapeSphere",
     "SustainedContact",
+    "PhysicsWorld",
     "AudioContactBridge",
 ]

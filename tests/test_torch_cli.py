@@ -1,0 +1,97 @@
+"""`python -m mesheditor_tpu_torch solve|info|render` on the CPU, in-process: a surface file
+goes in, a stored modal model comes out, is inspected and rendered to a wav."""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from mesheditor_tpu_torch.__main__ import main
+from mesheditor_tpu_torch.io import load_modal_model, read_wav
+from mesheditor_tpu_torch.mesh import cdt, icosphere_surface, save_obj, save_ply
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def solved(tmp_path_factory):
+    """`solve` on a 10 cm glass icosphere written as .obj; returns (store dir, model path,
+    what the command printed)."""
+    root = tmp_path_factory.mktemp("cli")
+    pts, tris = icosphere_surface(1)
+    save_obj(root / "ball.obj", pts * 0.1, tris)
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    meshes = cdt.NATIVE_MESHES
+    with contextlib.redirect_stdout(out):
+        main(["solve", str(root / "ball.obj"), "--material", "Glass", "--modes", "6",
+              "--vertices", "4", "--max-freq", "24000", "--tet-resolution", "6",
+              "--out-dir", str(root / "modal"), "--device", "cpu"])
+    assert cdt.NATIVE_MESHES == meshes + 1
+    text = out.getvalue()
+    model = re.search(r"model -> (\S+)", text).group(1)
+    return root, model, text
+
+
+def test_solve_stores_a_model(solved):
+    root, model, text = solved
+    assert "mesh: 42 verts, 80 tris; material Glass" in text
+    assert re.search(r"solved 6 modes, f1 \d+\.\d Hz, mass \d+\.\d+ kg", text)
+    assert re.search(r"\(\d+ iterations, \d+ dofs\)", text)
+    assert [p.name for p in (root / "modal").iterdir()] == [model.rsplit("/", 1)[1]]
+    modes, mass = load_modal_model(model)
+    assert modes.num_modes == 6 and modes.shapes.shape == (4, 6, 3)
+    assert 5 < mass.mass < 12  # a 10 cm glass ball
+    assert 8e3 < modes.freqs[0] < 2e4
+
+
+def test_info_prints_the_model(solved, capsys):
+    _root, model, _text = solved
+    main(["info", model])
+    text = capsys.readouterr().out
+    modes, mass = load_modal_model(model)
+    assert "modes: 6  sample points: 4" in text
+    assert f"mass: {mass.mass:.4f} kg" in text
+    assert f"mode  0: {modes.freqs[0]:9.2f} Hz" in text
+    assert len(re.findall(r"mode +\d+:", text)) == 6
+
+
+def test_render_writes_a_wav(solved, capsys):
+    root, model, _text = solved
+    wav = root / "ball.wav"
+    main(["render", model, "--out", str(wav), "--seconds", "0.25", "--strikes", "2",
+          "--seed", "3", "--device", "cpu"])
+    assert re.search(r"rendered 0.25s \(2 strikes\) -> \S+ball.wav \(peak \d",
+                     capsys.readouterr().out)
+    audio, rate = read_wav(wav)
+    assert rate == 48000 and audio.shape == (1, 24 * 512)
+    assert np.isfinite(audio).all() and np.abs(audio).max() == pytest.approx(0.9, abs=1e-3)
+
+
+def test_solve_reads_ply_and_refuses_an_unknown_material(tmp_path, capsys):
+    pts, tris = icosphere_surface(1)
+    save_ply(tmp_path / "ball.ply", pts * 0.1, tris)
+    with pytest.raises(SystemExit, match="unknown material 'Cheese'"):
+        main(["solve", str(tmp_path / "ball.ply"), "--material", "Cheese", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no modes in the band"):
+        main(["solve", str(tmp_path / "ball.ply"), "--material", "Glass", "--modes", "4",
+              "--vertices", "2", "--tet-resolution", "6", "--out-dir", str(tmp_path / "m"),
+              "--max-freq", "5000", "--device", "cpu"])  # the ball rings above 10 kHz
+    assert "mesh: 42 verts, 80 tris" in capsys.readouterr().out
+
+
+def test_cuda_is_the_default_device_and_raises_without_a_card(solved):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card refusal cannot be observed")
+    _root, model, _text = solved
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["render", model, "--seconds", "0.1"])

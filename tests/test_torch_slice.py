@@ -82,21 +82,51 @@ def test_shapes_match_reference_up_to_sign(solves):
         assert np.abs(sign * sa - sb).max() <= 1e-4 * scale, k
 
 
-def test_render_matches_reference_on_the_same_modal_model(solves):
-    _port, ref = solves
-    m = ref.modes
-    modes = convert.modal_modes(freqs=m.freqs, t60s=m.t60s, shapes=m.shapes,
-                                positions=m.positions,
-                                original_fundamental_freq=m.original_fundamental_freq)
-    n_points = m.shapes.shape[0]
+# Two valid float32 orderings of the resonator recurrence drift ~2e-6 x peak apart per
+# ~1,000 samples (measured on the reference's own kernels against its scan). The 0.1 s
+# renders below are 4,800 samples long.
+DRIFT_LIMIT = 2e-6 * 4800 / 1000
+
+
+def _render_both(freqs, t60s, shapes):
+    """0.1 s of four struck objects over one modal model through both packages."""
+    modes = convert.modal_modes(freqs=freqs, t60s=t60s, shapes=shapes)
+    jmodes = JaxModalModes(freqs, t60s, shapes)
+    n_points = shapes.shape[0]
     synth = make_synth([modes] * 4, device="cpu")
-    jsynth = jax_make_synth([m] * 4)
+    jsynth = jax_make_synth([jmodes] * 4)
     strike_all(synth, 4, n_points, ModalEvent)
     strike_all(jsynth, 4, n_points, JaxModalEvent)
     a = synth.render_seconds(0.1, 512)
     b = np.asarray(jsynth.render_seconds(0.1, 512))
     assert a.shape == b.shape
-    assert np.abs(a - b).max() < 2e-5 * np.abs(b).max()
+    return a, b
+
+
+def test_render_matches_reference_on_the_same_modal_model(solves):
+    """Both synths render the reference's solved model. An eigenvector's sign is arbitrary
+    and differs from solve to solve; the strikes excite one point and the mix sums all
+    modes, so the sign pattern sets how far the modes cancel: the peak of this render
+    moves between 7e-4 and 4e-2 over repeated solves while the float32 error of the
+    recurrence stays near 2e-8. Each mode's sign is therefore fixed by its largest
+    component first, which pins the peak (3.5e-2) and makes the relative error a property
+    of the two renders and not of the solve's last bits."""
+    _port, ref = solves
+    shapes = np.asarray(ref.modes.shapes)  # (points, modes, 3)
+    flat = shapes.transpose(1, 0, 2).reshape(shapes.shape[1], -1)
+    sign = np.sign(flat[np.arange(flat.shape[0]), np.abs(flat).argmax(axis=1)])
+    a, b = _render_both(np.asarray(ref.modes.freqs), np.asarray(ref.modes.t60s),
+                        shapes * sign[None, :, None])
+    assert np.abs(a - b).max() < DRIFT_LIMIT * np.abs(b).max()
+
+
+def test_render_matches_reference_on_a_seeded_modal_model():
+    """The same comparison with no solve in it: a fixed modal model made from a seed."""
+    rng = np.random.default_rng(20260820)
+    k = 64
+    a, b = _render_both(np.linspace(120.0, 9000.0, k), np.linspace(1.2, 0.15, k),
+                        (rng.standard_normal((5, k, 3)) * 0.02).astype(np.float32))
+    assert np.abs(a - b).max() < DRIFT_LIMIT * np.abs(b).max()
 
 
 def test_port_solve_renders(solves):
