@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels | --scene]
+    python3 chip_smoke.py [--kernels | --scene | --render]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
 for 1 s in 512-sample blocks with 16 sustained voices from the physics bridge, and the
 scene-in / audio-out path (a closed surface meshed and solved, a corpus solved into the
-model store, a scene of falling bodies simulated to audio, the command line) — after
+model store, a scene of falling bodies simulated to audio, the command line) and the
+render layer (corpus goldens, the falling bodies at 960x720 with supersample 2, a
+turntable recording, the view and record commands) — after
 building the CUDA kernels from csrc/ and the tet mesher from native/tetmesher.cpp and
 checking each kernel against its plain PyTorch version on the card. Phases, in order (any
 failure exits non-zero before the final line):
@@ -68,6 +70,19 @@ failure exits non-zero before the final line):
      shape, slots and voices) and held to the kernels' tolerances; the spread of the
      repeated solves of one request (frequencies, mode-shape signs) is printed;
   h. cli: `python -m mesheditor_tpu_torch solve`, `info` and `render` as subprocesses;
+  i. render: the render layer, plain PyTorch on the card (no kernel of its own). Six corpus
+     scenes (supersampled, cuboid_flat_pointlight, spotlight_floor, textured_quad,
+     torus_wireframe, ibl_spheres), built with the port's components, each within one
+     quantization step of its golden in tests/fixtures/render_corpus/ (decoded with zlib)
+     apart from contested pixels (a near-tie in depth); the falling scene's 8 bodies
+     (23,552 triangles) with a directional, a point and a spot light and an IBL map at
+     960x720, supersample 2: every 48th row and each body's center row rendered again on
+     the CPU by the port's own chunk step and shader (ids equal apart from contested
+     pixels, lit values within 1e-4), picks at the body centers and a box select over the
+     view equal on both; rasterize (chunk 8, 64, 256) and shade timed apart (median of 5
+     after a warm-up), peak memory, the rasterizer's bound with its formula; a 36-frame
+     turntable of icosphere(4) at 480x360 to PNG frames; `view` and `record` as
+     subprocesses;
   d. timings.
 
 The line before the last is the card's name and power limit; before it, one JSON line
@@ -76,7 +91,7 @@ with each kernel's main-path launches, parity, times and bound. The last line is
 
 --kernels runs phases 1-3 and a only (the kernels against their plain versions, and their
 times) and ends with "kernels: ok" instead. --scene runs phases 1-2 and e-h only and ends
-with "scene: ok".
+with "scene: ok". --render runs phases 1 and i only and ends with "render: ok".
 """
 
 from __future__ import annotations
@@ -619,17 +634,15 @@ def sustained_render(synth, voices, blocks=94, frames=512):
     return np.concatenate(out), walls
 
 
-def profile_sustained(result, device, blocks=16) -> dict:
-    """torch.profiler over a warm window of the sustained frame loop: the device's busy
-    and idle share of the wall, device operations per block, and device time by name."""
+def device_profile(run) -> tuple[float, dict]:
+    """torch.profiler (CPU and CUDA activities) around run(), which ends in a sync: the
+    host wall in microseconds and {device operation name: [count, microseconds]}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    synth, voices = sustained_scene(result, device)
-    sustained_render(synth, voices, blocks=4)  # warm-up
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sustained_render(synth, voices, blocks=blocks)
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, list] = {}
     for e in prof.events():
@@ -637,6 +650,15 @@ def profile_sustained(result, device, blocks=16) -> dict:
             entry = by_name.setdefault(e.name, [0, 0.0])
             entry[0] += 1
             entry[1] += e.time_range.elapsed_us()
+    return wall_us, by_name
+
+
+def profile_sustained(result, device, blocks=16) -> dict:
+    """torch.profiler over a warm window of the sustained frame loop: the device's busy
+    and idle share of the wall, device operations per block, and device time by name."""
+    synth, voices = sustained_scene(result, device)
+    sustained_render(synth, voices, blocks=4)  # warm-up
+    wall_us, by_name = device_profile(lambda: sustained_render(synth, voices, blocks=blocks))
     busy = sum(t for _n, t in by_name.values())
     copies = sum(n for name, (n, _t) in by_name.items() if name.startswith(("Memcpy", "Memset")))
     ops = sum(n for n, _t in by_name.values())
@@ -1304,6 +1326,456 @@ def cli_phase() -> None:
         assert wav.stat().st_size > 48_000, "render wrote a short wav"
 
 
+# ---- phase i: the render layer (plain PyTorch on the card; no kernel of its own) ----
+
+GOLDEN_DIR = REPO / "tests" / "fixtures" / "render_corpus"
+GOLDEN_SIZE = (240, 160)
+RENDER_GOLDENS = ("supersampled", "cuboid_flat_pointlight", "spotlight_floor", "textured_quad",
+                  "torus_wireframe", "ibl_spheres")
+CONTESTED_SHARE = 5e-4  # of an image's pixels: the port's CPU tests see at most 1.8e-4
+# Float operations of one pixel-triangle pair in the rasterizer: 3 edge functions at 2 mul
+# + 1 sub each (their per-triangle differences aside), 3 mul by 1/area, 3 compares for
+# coverage, the depth (3 mul + 2 add), 2 compares for the depth range, 1 for the z-resolve.
+RASTER_FLOPS_PER_PAIR = 23
+GBUFFER_BYTES_PER_PIXEL = 20  # depth f32 + triangle id i32 + 3 barycentrics f32
+
+
+def read_png(path) -> np.ndarray:
+    """(H, W, 3) uint8 pixels of an 8-bit RGB or RGBA PNG, decoded with zlib (the card's
+    machine has no PIL): every filter type, no interlace."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG file")
+    pos, idat, head = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        elif tag == b"IEND":
+            break
+    w, h, depth, color, _, _, interlace = head
+    if depth != 8 or color not in (2, 6) or interlace:
+        raise ValueError(f"{path}: depth {depth}, color type {color}, interlace {interlace}")
+    bpp = 3 if color == 2 else 4
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
+    rows, prev = [], [0] * (w * bpp)
+    for y in range(h):
+        kind, line = int(raw[y, 0]), raw[y, 1:].tolist()
+        if kind == 0:
+            cur = line
+        elif kind == 2:
+            cur = [(v + u) & 255 for v, u in zip(line, prev)]
+        elif kind in (1, 3, 4):
+            cur = [0] * len(line)
+            for i, v in enumerate(line):
+                a = cur[i - bpp] if i >= bpp else 0
+                b = prev[i]
+                c = prev[i - bpp] if i >= bpp else 0
+                if kind == 1:
+                    p = a
+                elif kind == 3:
+                    p = (a + b) >> 1
+                else:  # Paeth
+                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+                    p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+                cur[i] = (v + p) & 255
+        else:
+            raise ValueError(f"{path}: row {y} has filter type {kind}")
+        rows.append(cur)
+        prev = cur
+    return np.asarray(rows, np.uint8).reshape(h, w, bpp)[..., :3]
+
+
+def contested_pixels(tri_buf, tris, clip, pixels, rtol=1e-4) -> list:
+    """For each (y, x) of a triangle-id buffer: whether its winner ties in depth with
+    another triangle, that is both cover the pixel center (float64 barycentrics >= -1e-6)
+    at float64 depths within rtol of each other. On such a pixel two valid float orders
+    of the rasterizer (XLA's fused multiply-adds, PyTorch's rounded products) may pick
+    different triangles; on no other pixel may they differ."""
+    h, w = tri_buf.shape
+    v = np.asarray(clip, np.float64)
+    tris = np.asarray(tris, np.int64).reshape(-1, 3)
+    cw = v[:, 3]
+    ndc = v[:, :3] / np.where(cw == 0, 1.0, cw)[:, None]
+    sx, sy = ((ndc[:, 0] + 1) * 0.5 * w)[tris], ((1 - ndc[:, 1]) * 0.5 * h)[tris]
+    nz = ndc[:, 2][tris]
+    area = (sx[:, 1] - sx[:, 0]) * (sy[:, 2] - sy[:, 0]) - (sy[:, 1] - sy[:, 0]) * (sx[:, 2] - sx[:, 0])
+    usable = (cw[tris] > 1e-6).all(1) & (area != 0)
+    area = np.where(usable, area, 1.0)
+    a, b = [1, 2, 0], [2, 0, 1]
+    out = []
+    for y, x in pixels:
+        win = int(tri_buf[y, x])
+        if win < 0:
+            out.append(False)  # background against a triangle is never a tie
+            continue
+        px, py = x + 0.5, y + 0.5
+        e = (sx[:, b] - sx[:, a]) * (py - sy[:, a]) - (sy[:, b] - sy[:, a]) * (px - sx[:, a])
+        bary = e / area[:, None]
+        cover = usable & (bary >= -1e-6).all(1)
+        z = (bary * nz).sum(1)
+        rival = cover & (np.abs(z - z[win]) <= rtol * abs(z[win]))
+        rival[win] = False
+        out.append(bool(cover[win] and rival.any()))
+    return out
+
+
+def golden_check(view, golden) -> tuple[int, int]:
+    """(pixels more than one step from the golden, how many of them are contested) for a
+    rendered SceneRenderer; a pixel of a supersampled image is contested when one of its
+    samples is."""
+    img = np.clip(np.round(view.image() * 255.0), 0, 255).astype(np.uint8)
+    assert img.shape == golden.shape, (img.shape, golden.shape)
+    bad = np.argwhere(np.abs(img.astype(np.int16) - golden.astype(np.int16)).max(-1) > 1)
+    ss = max(int(view.settings.supersample), 1)
+    tri = view.gbuf.tri.cpu().numpy()
+    subs = [(y * ss + i, x * ss + j) for y, x in bad for i in range(ss) for j in range(ss)]
+    flags = np.asarray(contested_pixels(tri, view._tris, view.clip, subs), bool)
+    return len(bad), int(flags.reshape(len(bad), ss * ss).any(1).sum()) if len(bad) else 0
+
+
+def corpus_scene(name):
+    """One scene of scripts/render_corpus.py built with the port's components (that script
+    imports the JAX package): (registry, camera or None, RenderSettings)."""
+    from mesheditor_tpu_torch.mesh import (
+        cuboid_surface, icosphere_surface, plane_surface, torus_surface,
+    )
+    from mesheditor_tpu_torch.render import RenderSettings
+    from mesheditor_tpu_torch.render.camera import orbit_camera
+    from mesheditor_tpu_torch.scene import components as c
+    from mesheditor_tpu_torch.scene.derive import install_default_pipeline
+    from mesheditor_tpu_torch.scene.registry import Registry
+
+    r = Registry()
+    install_default_pipeline(r)
+
+    def add(pts, tris, pos=(0, 0, 0), mat=None):
+        e = r.create()
+        t = c.Transform(translation=np.asarray(pos, np.float64))
+        t.scale = np.full(3, 1.0)
+        r.emplace(e, t)
+        r.emplace(e, c.MeshSurface(positions=np.asarray(pts, np.float64),
+                                   triangles=np.asarray(tris, np.uint32)))
+        r.emplace(e, mat or c.VisualMaterial())
+        return e
+
+    def light(kind, pos=(0.0, 0.0, 0.0), rot=None, **kw):
+        e = r.create()
+        t = c.Transform(translation=np.asarray(pos, np.float64))
+        if rot is not None:
+            t.rotation = np.asarray(rot, np.float64)
+        r.emplace(e, t)
+        r.emplace(e, c.LightComponent(kind=kind, **kw))
+
+    size = dict(width=GOLDEN_SIZE[0], height=GOLDEN_SIZE[1])
+    cam = None
+    if name == "supersampled":
+        add(*torus_surface(0.5, 0.2, 20, 10),
+            mat=c.VisualMaterial(base_color=np.array([0.3, 0.7, 0.45, 1.0])))
+        light("directional", color=np.ones(3), intensity=1.0)
+        settings = RenderSettings(**size, supersample=2)
+    elif name == "cuboid_flat_pointlight":
+        add(*cuboid_surface((1, 1, 1)),
+            mat=c.VisualMaterial(base_color=np.array([0.8, 0.4, 0.3, 1.0])))
+        light("point", pos=(1.5, 2.0, 1.5), intensity=40.0)
+        settings = RenderSettings(**size, mode="flat")
+    elif name == "spotlight_floor":
+        pts, tris = plane_surface((4.0, 4.0))
+        add(np.asarray(pts)[:, [0, 2, 1]], tris,
+            mat=c.VisualMaterial(base_color=np.array([0.7, 0.7, 0.72, 1.0])))
+        spts, stris = icosphere_surface(2)
+        add(np.asarray(spts) * 0.3, stris, pos=(0, 0.3, 0),
+            mat=c.VisualMaterial(base_color=np.array([0.35, 0.5, 0.8, 1.0])))
+        light("spot", pos=(0.0, 2.5, 0.0), rot=(np.cos(np.pi / 4), -np.sin(np.pi / 4), 0, 0),
+              intensity=60.0, inner_cone_angle=0.3, outer_cone_angle=0.6)
+        cam = orbit_camera(np.zeros(3), 5.0, azimuth_deg=30, elevation_deg=35)
+        settings = RenderSettings(**size)
+    elif name == "textured_quad":
+        pts, tris = plane_surface((2.0, 2.0))
+        p = np.asarray(pts)
+        yy, xx = np.mgrid[0:64, 0:64]
+        checker = ((xx // 8 + yy // 8) % 2).astype(np.uint8)
+        tex = np.zeros((64, 64, 4), np.uint8)
+        tex[..., 0] = 40 + 200 * checker
+        tex[..., 1] = 60 + 140 * (1 - checker)
+        tex[..., 2] = 160
+        tex[..., 3] = 255
+        e = add(pts, tris, mat=c.VisualMaterial(texture=tex))
+        r.get(e, c.MeshSurface).uvs = np.stack([(p[:, 0] + 1.0) * 0.5, (p[:, 1] + 1.0) * 0.5], 1)
+        light("directional", color=np.ones(3), intensity=1.0)
+        settings = RenderSettings(**size)
+    elif name == "torus_wireframe":
+        add(*torus_surface(0.5, 0.2, 28, 14))
+        light("directional", color=np.ones(3), intensity=1.0)
+        settings = RenderSettings(**size, mode="wireframe")
+    elif name == "ibl_spheres":
+        pts, tris = icosphere_surface(2)
+        for i, rough in enumerate((0.1, 0.4, 0.8)):
+            add(np.asarray(pts) * 0.45, tris, pos=(i * 1.1, 0, 0),
+                mat=c.VisualMaterial(base_color=np.array([0.95, 0.95, 0.95, 1.0]),
+                                     metallic=1.0, roughness=rough))
+        env = np.zeros((32, 64, 3), np.float32)
+        env[:16] = (0.3, 0.5, 1.2)
+        env[16:] = (0.5, 0.35, 0.2)
+        env[4:8, 10:14] = (40.0, 38.0, 30.0)  # sun blob
+        settings = RenderSettings(**size, ambient=(0.0, 0.0, 0.0), environment=env)
+    else:
+        raise KeyError(name)
+    return r, cam, settings
+
+
+def full_width_scene(seed=20261016):
+    """The falling scene's 8 bodies (23,552 triangles) at their start poses, each with its
+    own material, lit by a directional, a point and a spot light and a seeded IBL map:
+    (registry, body entities, RenderSettings at the view command's 960x720, supersample 2)."""
+    from mesheditor_tpu_torch.render import RenderSettings
+    from mesheditor_tpu_torch.scene import components as c
+    from mesheditor_tpu_torch.scene.derive import install_default_pipeline
+
+    rng = np.random.default_rng(seed)
+    reg, bodies = falling_scene(seed)
+    install_default_pipeline(reg)
+    for i, e in enumerate(bodies):
+        reg.emplace(e, c.VisualMaterial(base_color=np.append(rng.uniform(0.2, 0.9, 3), 1.0),
+                                        metallic=float(i % 3 == 0), roughness=0.2 + 0.1 * i))
+    for kind, pos, rot, kw in (
+            ("directional", (0.0, 0.0, 0.0), (0.92, -0.38, 0.0, 0.0), dict(intensity=2.0)),
+            ("point", (0.0, 1.0, 0.8), (1.0, 0.0, 0.0, 0.0), dict(intensity=3.0)),
+            ("spot", (0.5, 1.5, 0.0), (np.cos(np.pi / 4), -np.sin(np.pi / 4), 0.0, 0.0),
+             dict(intensity=25.0, inner_cone_angle=0.3, outer_cone_angle=0.7))):
+        e = reg.create()
+        t = c.Transform(translation=np.asarray(pos, np.float64))
+        t.rotation = np.asarray(rot, np.float64)
+        reg.emplace(e, t)
+        reg.emplace(e, c.LightComponent(kind=kind, **kw))
+    env = rng.uniform(0.05, 0.6, (64, 128, 3)).astype(np.float32)
+    env[6:12, 20:30] = (30.0, 28.0, 24.0)  # a sun
+    return reg, bodies, RenderSettings(width=960, height=720, supersample=2, environment=env)
+
+
+def band_render(view, batch, env, rows, chunk=256):
+    """The given rows of `view`'s supersampled frame, rasterized and shaded from `batch`
+    (and the prefiltered `env`) on the batch's device by the port's own chunk step. Each
+    pixel is computed on its own, so a row alone holds the bits it holds in the frame.
+    Returns (G-buffer of the rows, lit rows)."""
+    import torch
+
+    from mesheditor_tpu_torch.render import raster, shade
+
+    dev = batch.device
+    w, h = view._rw, view._rh
+    px = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5)[None, :, None]
+    py = (torch.as_tensor(np.asarray(rows), dtype=torch.float32, device=dev) + 0.5)[:, None, None]
+    gbuf = raster.GBuffer(
+        torch.full((len(rows), w), float("inf"), dtype=torch.float32, device=dev),
+        torch.full((len(rows), w), -1, dtype=torch.int32, device=dev),
+        torch.zeros((len(rows), w, 3), dtype=torch.float32, device=dev))
+    clip = torch.as_tensor(view.clip, device=dev)
+    tris = torch.as_tensor(view._tris.astype(np.int64), device=dev)
+    for first in range(0, tris.shape[0], chunk):
+        raster._rasterize_chunk(clip, tris[first:first + chunk], first, px, py, w, h, False,
+                                gbuf)
+    s = view.settings
+    img = shade(gbuf, view._positions, view._normals, view._tris, view._tri_obj,
+                batch.materials, batch.lights, eye=np.asarray(view.camera.eye, np.float32),
+                ambient=s.ambient, background=s.background, sky=s.sky, ground=s.ground,
+                environment=env)
+    return gbuf, img
+
+
+def render_phase(device, card: str, size=(960, 720), turntable=(36, 480, 360),
+                 timing_reps: int = 5) -> dict:
+    """Phase i: the render layer. Goldens, the full-width scene (960x720 by default, the
+    view command's size) against the CPU's render of the same rows, rasterize/shade times
+    by chunk, a turntable recording (frames, width, height) and the view and record
+    commands. Returns the numbers it printed. (A rehearsal off the card passes device="cpu",
+    smaller sizes and fewer repetitions.)"""
+    import torch
+
+    from mesheditor_tpu_torch.render import rasterize, render_scene
+    from mesheditor_tpu_torch.render.camera import view_projection
+    from mesheditor_tpu_torch.render.environment import prefilter_environment
+    from mesheditor_tpu_torch.render.raster import project_points, screen_coords
+    from mesheditor_tpu_torch.render.record import record, turntable_frames
+    from mesheditor_tpu_torch.render.scene_render import RenderSettings, flatten_scene
+    from mesheditor_tpu_torch.mesh import icosphere_surface, save_obj
+    from mesheditor_tpu_torch.scene import components as c
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    # 1. goldens
+    for name in RENDER_GOLDENS:
+        r, cam, settings = corpus_scene(name)
+        t0 = time.perf_counter()
+        view = render_scene(r, camera=cam, settings=settings, device=device)
+        n_bad, n_contested = golden_check(view, read_png(GOLDEN_DIR / f"{name}.png"))
+        limit = CONTESTED_SHARE * settings.width * settings.height
+        assert n_bad == n_contested <= limit, \
+            f"{name}: {n_bad} pixels off the golden by more than one step, {n_contested} contested"
+        log(f"[render] golden {name}: {n_bad} pixels more than one step off, all contested "
+            f"(limit {limit:.0f}); {time.perf_counter() - t0:.3f} s")
+
+    # 2. full width: 8 bodies, three lights and an IBL map at 960x720, supersample 2
+    reg, bodies, settings = full_width_scene()
+    settings.width, settings.height = size
+    t0 = time.perf_counter()
+    view = render_scene(reg, settings=settings, device=device)
+    image = view.image()
+    first_s = time.perf_counter() - t0
+    n_tris, (rh, rw) = view._tris.shape[0], view.gbuf.tri.shape
+    ss = settings.supersample
+    assert n_tris == 23_552 and (rh, rw) == (size[1] * ss, size[0] * ss), (n_tris, rh, rw)
+    assert image.shape == (size[1], size[0], 3) and np.isfinite(image).all()
+    covered = float((view.gbuf.tri >= 0).float().mean())
+    assert 0.001 < covered < 0.9, f"covered share {covered}"
+    # The CPU's render of the same rows: every 48th row and each body's center row.
+    mvp = view_projection(view.camera, settings.width, settings.height)
+    centers = np.stack([reg.get(e, c.WorldTransform).matrix[:3, 3] for e in bodies])
+    px = screen_coords(project_points(mvp, centers, device="cpu").numpy(), settings.width,
+                       settings.height).astype(np.int64)
+    rows = sorted(set(range(0, rh, 144)) | {int(y) * ss for _, y in px})
+    t0 = time.perf_counter()
+    cpu_batch = flatten_scene(reg, device="cpu")
+    cpu_env = prefilter_environment(settings.environment, device="cpu")
+    cpu_gbuf, cpu_rows = band_render(view, cpu_batch, cpu_env, rows)
+    cpu_s = time.perf_counter() - t0
+    card_rows = view.shade_frame()[rows].cpu()
+    tri, cpu_tri = view.gbuf.tri[rows].cpu().numpy(), cpu_gbuf.tri.numpy()
+    differ = np.argwhere(tri != cpu_tri)
+    flags = contested_pixels(view.gbuf.tri.cpu().numpy(), view._tris, view.clip,
+                             [(rows[y], x) for y, x in differ])
+    assert all(flags), f"{len(differ) - sum(flags)} uncontested id differences card vs CPU"
+    same = torch.as_tensor(tri == cpu_tri)
+    img_err = float((card_rows - cpu_rows).abs()[same].max())
+    depth_equal = bool(torch.equal(view.gbuf.depth[rows].cpu()[same], cpu_gbuf.depth[same]))
+    bary_err = float((view.gbuf.bary[rows].cpu() - cpu_gbuf.bary).abs()[same].max())
+    assert img_err < 1e-4, f"card and CPU rows differ by {img_err:.3e}"
+    picks = []
+    for e, (x, y) in zip(bodies, px):
+        got = view.pick_entity(int(x), int(y))
+        t = int(cpu_tri[rows.index(int(y) * ss), int(x) * ss])
+        picks.append((got, view.batch.entities[view._tri_obj[t]] if t >= 0 else -1))
+    assert all(a == b for a, b in picks), f"picks card vs CPU: {picks}"
+    boxed = view.box_select_entities(0, 0, settings.width - 1, settings.height - 1)
+    cpu_boxed = sorted({view.batch.entities[i] for i in view._tri_obj[np.unique(cpu_tri[cpu_tri >= 0])]})
+    assert sorted(boxed) == cpu_boxed == sorted(bodies), (boxed, cpu_boxed)
+    log(f"[render] full width: {len(bodies)} bodies, {n_tris} triangles, {rw}x{rh} rasterized "
+        f"for {settings.width}x{settings.height}, {covered:.3f} of the pixels covered; first "
+        f"render_scene + image {first_s:.3f} s. CPU render of {len(rows)} rows in {cpu_s:.1f} s: "
+        f"{len(differ)} triangle ids differ (all contested), depth bit-equal {depth_equal}, "
+        f"bary within {bary_err:.3e}, lit rows within {img_err:.3e}; picks at the {len(bodies)} "
+        f"body centers agree ({sum(a >= 0 for a, _ in picks)} on a body), box select names "
+        f"all {len(cpu_boxed)} bodies")
+    out.update(n_tris=n_tris, covered=covered, contested=len(differ), img_err=img_err)
+
+    # 3. times by chunk: rasterize and shade apart, median of timing_reps after a warm-up
+    clip = torch.as_tensor(view.clip, device=dev)
+    pairs = float(rw * rh) * n_tris
+    b_ms, b_by = bound(pairs * RASTER_FLOPS_PER_PAIR, rw * rh * GBUFFER_BYTES_PER_PIXEL)
+    log(f"[render] rasterizer bound = max(pixel-triangle pairs x {RASTER_FLOPS_PER_PAIR} float "
+        f"operations / {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, G-buffer bytes ({rw}x{rh} x "
+        f"{GBUFFER_BYTES_PER_PIXEL}) / {PEAK_BYTES / 1e12:.2f} TB/s) = max({pairs:.4g} x "
+        f"{RASTER_FLOPS_PER_PAIR} / {PEAK_F32_FLOPS:.3g}, {rw * rh * GBUFFER_BYTES_PER_PIXEL} / "
+        f"{PEAK_BYTES:.3g}) = {b_ms:.3f} ms, bound by {b_by}")
+    chunks = {}
+    for chunk in (8, 64, 256):
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(timing_reps + 1):
+            sync()
+            t0 = time.perf_counter()
+            g = rasterize(clip, view._tris, rw, rh, chunk=chunk, device=device)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        assert all(torch.equal(a, b) for a, b in zip(g, view.gbuf)), f"chunk {chunk} differs"
+        del g
+        chunks[chunk] = {"rasterize_ms": float(np.median(times[1:])), "peak_bytes": peak}
+    shade_times = []
+    for _ in range(timing_reps + 1):
+        sync()
+        t0 = time.perf_counter()
+        view.shade_frame()
+        sync()
+        shade_times.append((time.perf_counter() - t0) * 1e3)
+    shade_ms = float(np.median(shade_times[1:]))
+    for chunk, rec in chunks.items():
+        peak = "not measured" if rec["peak_bytes"] is None else f"{rec['peak_bytes'] / 2**30:.2f} GiB"
+        log(f"[render] chunk {chunk:3d}: rasterize {rec['rasterize_ms']:.1f} ms (median of "
+            f"{timing_reps} after a warm-up, {rec['rasterize_ms'] / b_ms:.0f}x the bound), peak "
+            f"memory {peak}; G-buffer bit-identical to chunk {settings.chunk}'s ({card})")
+    log(f"[render] shade {shade_ms:.1f} ms at {rw}x{rh} (3 lights + IBL; median of "
+        f"{timing_reps}); shade share of rasterize + shade at chunk {settings.chunk}: "
+        f"{shade_ms / (shade_ms + chunks[settings.chunk]['rasterize_ms']):.3f} ({card})")
+    out.update(chunks=chunks, shade_ms=shade_ms, bound_ms=b_ms)
+    if dev.type == "cuda":
+        # One frame (rasterize at the default chunk, then shade) under torch.profiler.
+        def frame():
+            rasterize(clip, view._tris, rw, rh, chunk=settings.chunk, device=device)
+            view.shade_frame()
+            sync()
+
+        wall_us, by_name = device_profile(frame)
+        busy = sum(t for _n, t in by_name.values())
+        launches = sum(n for _t, (n, _u) in by_name.items())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        out["profile"] = {
+            "wall_ms": wall_us / 1e3, "device_ms": busy / 1e3, "launches": launches,
+            "idle_share": 1.0 - busy / wall_us if busy else None,
+            "top": [{"name": n[:70], "count": c, "ms": t / 1e3, "share": t / busy}
+                    for n, (c, t) in top]}
+        log(f"[profile] render frame at chunk {settings.chunk} ({card}): " + json.dumps(out["profile"]))
+
+    # 4. turntable: 36 frames of icosphere(4) at 480x360 written as PNG frames
+    pts, tris = icosphere_surface(4)
+    n_frames, tw, th = turntable
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_render_") as tmp:
+        t0 = time.perf_counter()
+        path = record(Path(tmp) / "turntable.png", turntable_frames(
+            pts, tris, n_frames=n_frames, settings=RenderSettings(tw, th), device=device))
+        per_frame = (time.perf_counter() - t0) / n_frames * 1e3
+        frames = sorted(Path(tmp).glob("turntable_*.png"))
+        first, last = read_png(frames[0]), read_png(frames[-1])
+        assert path.suffix == ".png" and len(frames) == n_frames and first.shape == (th, tw, 3)
+        assert (first != last).any() and first.std() > 1.0, "the turntable does not turn"
+        log(f"[render] turntable: {n_frames} frames of icosphere(4) ({len(tris)} triangles) at "
+            f"{tw}x{th} to PNG, {per_frame:.1f} ms a frame, PNG writing included ({card})")
+        out["turntable_ms_per_frame"] = per_frame
+
+        # 5. the view and record commands as fresh processes
+        save_obj(Path(tmp) / "ball.obj", pts, tris)
+        for argv, check in (
+                (["view", "ball.obj", "--out", "view.png", "--width", str(size[0]),
+                  "--height", str(size[1])], lambda: read_png(Path(tmp) / "view.png")),
+                (["record", "ball.obj", "--out", "spin.png", "--frames", "6", "--width",
+                  str(tw), "--height", str(th)], lambda: read_png(Path(tmp) / "spin_0005.png"))):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "mesheditor_tpu_torch", *argv,
+                                   "--device", device], cwd=tmp, capture_output=True,
+                                  text=True, timeout=300,
+                                  env=dict(os.environ, PYTHONPATH=str(REPO)))
+            assert proc.returncode == 0, f"{argv[0]} exited {proc.returncode}:\n{proc.stderr}"
+            img = check()
+            assert img.std() > 1.0, f"{argv[0]} wrote a flat image"
+            log(f"[cli] {argv[0]} ({time.perf_counter() - t0:.1f} s): {img.shape[1]}x"
+                f"{img.shape[0]} PNG | " + " | ".join(proc.stdout.strip().splitlines()[-2:]))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     only = parser.add_mutually_exclusive_group()
@@ -1312,6 +1784,9 @@ def main() -> int:
     only.add_argument("--scene", action="store_true",
                       help="only the scene-in / audio-out phases (surface, store_batch, "
                            "scene, cli)")
+    only.add_argument("--render", action="store_true",
+                      help="only the render layer (goldens, full width, times, turntable, "
+                           "view and record)")
     args = parser.parse_args()
     try:
         import torch
@@ -1333,6 +1808,11 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
+
+    if args.render:
+        render_phase(device, card)
+        log("render: ok")
+        return 0
 
     # 2. build
     from mesheditor_tpu_torch import _build
@@ -1481,6 +1961,11 @@ def main() -> int:
     store_batch_phase(device, card)
     scene_kernels = scene_phase(device, card)
     cli_phase()
+
+    # (i) the render layer: no kernel of its own, and it launches neither resonator kernel
+    impact.LAUNCHES = coupled.LAUNCHES = 0
+    render_phase(device, card)
+    assert impact.LAUNCHES == coupled.LAUNCHES == 0, "the render launched a resonator kernel"
 
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "

@@ -2,11 +2,12 @@
 mesheditor_tpu/__main__.py).
 
 The headless analog of the reference's CLI (main.cpp:1387-1433 — --headless/--render/
---screenshot modes): solve meshes to modal models, render strikes to wav and inspect
-models, without an interactive session. `--device` names where the solve and the render
-run ("cuda" by default; "cpu" runs the plain PyTorch path on the host). The reference
-package's other commands (simulate, warmup, bench, edit, view, record, sessions) are not
-ported yet.
+--screenshot modes): solve meshes to modal models, render strikes to wav, inspect models,
+screenshot a mesh and record a turntable, without an interactive session. `--device`
+names where the solve and the renders run ("cuda" by default; "cpu" runs the plain
+PyTorch path on the host). `view` and `record` take .obj/.ply meshes; glTF scenes wait
+for the port of glTF import. The reference package's other commands (simulate, warmup,
+bench, edit, sessions) are not ported yet.
 """
 
 from __future__ import annotations
@@ -86,6 +87,45 @@ def cmd_info(args):
         print(f"  mode {k:2d}: {modes.freqs[k]:9.2f} Hz  T60 {modes.t60s[k]*1e3:8.1f} ms")
 
 
+def _load_mesh(path):
+    from .mesh import load_obj, load_ply
+
+    if path.endswith((".gltf", ".glb")):
+        sys.exit(f"{path}: glTF import is not ported yet; give an .obj or .ply mesh")
+    load = load_ply if path.endswith(".ply") else load_obj
+    return load(path)
+
+
+def cmd_record(args):
+    """Fixed-step turntable recording (the reference's --record capture,
+    main.cpp CLI + VideoRecorder)."""
+    from .render import RenderSettings
+    from .render.record import record, turntable_frames
+
+    settings = RenderSettings(width=args.width, height=args.height, mode=args.mode)
+    pts, tris = _load_mesh(args.scene)
+    out = record(args.out, turntable_frames(pts, tris, n_frames=args.frames,
+                                            settings=settings, device=args.device),
+                 fps=args.fps)
+    print(f"wrote {out} ({args.frames} frames @ {args.fps} fps)")
+
+
+def cmd_view(args):
+    """Screenshot a mesh through the rasterizer (the reference's --screenshot/--headless
+    render path, main.cpp:1387-1433)."""
+    from .render import RenderSettings, render_mesh, save_png
+    from .render.camera import frame_points
+
+    settings = RenderSettings(width=args.width, height=args.height, mode=args.mode,
+                              supersample=args.supersample)
+    pts, tris = _load_mesh(args.scene)
+    cam = frame_points(pts, azimuth_deg=args.azimuth, elevation_deg=args.elevation)
+    img = render_mesh(pts, tris, camera=cam, settings=settings, device=args.device)
+    print(f"mesh: {pts.shape[0]} verts, {tris.shape[0]} tris")
+    save_png(args.out, img)
+    print(f"wrote {args.out} ({settings.width}x{settings.height}, {settings.mode})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mesheditor_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -114,6 +154,31 @@ def main(argv=None):
     i = sub.add_parser("info", help="inspect a modal model file")
     i.add_argument("model")
     i.set_defaults(fn=cmd_info)
+
+    modes = ["smooth", "flat", "wireframe", "wireframe_only"]
+    rec = sub.add_parser("record", help="turntable-record a mesh to png frames/gif/mp4")
+    rec.add_argument("scene", help=".obj/.ply")
+    rec.add_argument("--out", default="turntable.gif",
+                     help=".gif (needs PIL), .mp4 (needs ffmpeg; else .gif) or .png frames")
+    rec.add_argument("--frames", type=int, default=36)
+    rec.add_argument("--fps", type=float, default=12.0)
+    rec.add_argument("--width", type=int, default=480)
+    rec.add_argument("--height", type=int, default=360)
+    rec.add_argument("--mode", default="smooth", choices=modes)
+    rec.add_argument("--device", default="cuda")
+    rec.set_defaults(fn=cmd_record)
+
+    v = sub.add_parser("view", help="screenshot a mesh (obj/ply) to PNG")
+    v.add_argument("scene")
+    v.add_argument("--out", default="view.png")
+    v.add_argument("--width", type=int, default=960)
+    v.add_argument("--height", type=int, default=720)
+    v.add_argument("--mode", default="smooth", choices=modes)
+    v.add_argument("--supersample", type=int, default=2)
+    v.add_argument("--azimuth", type=float, default=-60.0)
+    v.add_argument("--elevation", type=float, default=25.0)
+    v.add_argument("--device", default="cuda")
+    v.set_defaults(fn=cmd_view)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -95,3 +95,51 @@ def test_cuda_is_the_default_device_and_raises_without_a_card(solved):
     _root, model, _text = solved
     with pytest.raises(RuntimeError, match="cuda"):
         main(["render", model, "--seconds", "0.1"])
+
+
+def _png_pixels(path):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def test_view_writes_a_png(tmp_path, capsys):
+    pts, tris = icosphere_surface(2)
+    save_obj(tmp_path / "ball.obj", pts, tris)
+    out = tmp_path / "shot.png"
+    main(["view", str(tmp_path / "ball.obj"), "--out", str(out), "--width", "48",
+          "--height", "36", "--mode", "flat", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "mesh: 162 verts, 320 tris" in text and "(48x36, flat)" in text
+    img = _png_pixels(out)
+    assert img.shape == (36, 48, 3) and img.std() > 1.0
+
+
+def test_record_writes_png_frames(tmp_path, capsys):
+    pts, tris = icosphere_surface(1)
+    save_ply(tmp_path / "ball.ply", pts, tris)
+    main(["record", str(tmp_path / "ball.ply"), "--out", str(tmp_path / "spin.png"),
+          "--frames", "3", "--width", "32", "--height", "24", "--device", "cpu"])
+    assert "(3 frames @ 12.0 fps)" in capsys.readouterr().out
+    frames = sorted(tmp_path.glob("spin_*.png"))
+    assert len(frames) == 3
+    first, last = _png_pixels(frames[0]), _png_pixels(frames[-1])
+    assert first.shape == (24, 32, 3) and not np.array_equal(first, last)
+
+
+@pytest.mark.parametrize("command", ["view", "record"])
+def test_gltf_is_refused_until_its_import_is_ported(tmp_path, command):
+    scene = tmp_path / "scene.glb"
+    scene.write_bytes(b"glTF")
+    with pytest.raises(SystemExit, match="glTF import is not ported yet"):
+        main([command, str(scene), "--device", "cpu"])
+
+
+def test_view_defaults_to_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card refusal cannot be observed")
+    pts, tris = icosphere_surface(1)
+    save_obj(tmp_path / "ball.obj", pts, tris)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["view", str(tmp_path / "ball.obj"), "--out", str(tmp_path / "x.png")])

@@ -41,7 +41,10 @@ def test_imports_with_jax_blocked():
         "need = ['__main__', 'api', 'profile', 'mesh.cdt', 'mesh.simplify', 'mesh.voxel_tets',"
         " 'mesh.isosurface', 'mesh.halfedge', 'solve.batch', 'solve.orchestration',"
         " 'io.model_store', 'synth.tuning', 'scene.audio_sync', 'scene.registry',"
-        " 'scene.animation', 'scene.armature', 'physics.world', 'physics.scene_build']\n"
+        " 'scene.animation', 'scene.armature', 'physics.world', 'physics.scene_build',"
+        " 'render', 'render.camera', 'render.raster', 'render.shading', 'render.environment',"
+        " 'render.picking', 'render.scene_render', 'render.selection_state', 'render.gizmo',"
+        " 'render.debug_draw', 'render.record']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
@@ -71,9 +74,37 @@ def test_no_source_imports_jax_or_reference():
                 assert root not in ("jax", "jaxlib", "mesheditor_tpu"), f"{path}: {name}"
 
 
+def test_render_layer_imports_neither_jax_nor_the_reference():
+    """The 11 modules of the render layer, and what they import when loaded alone."""
+    render = sorted((PKG / "render").glob("*.py"))
+    assert [p.stem for p in render] == [
+        "__init__", "camera", "debug_draw", "environment", "gizmo", "picking", "raster",
+        "record", "scene_render", "selection_state", "shading"]
+    for path in render:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert node.module.split(".")[0] not in ("jax", "jaxlib", "mesheditor_tpu")
+            elif isinstance(node, ast.Import):
+                assert all(a.name.split(".")[0] not in ("jax", "jaxlib", "mesheditor_tpu")
+                           for a in node.names), path
+    code = (
+        "import sys; sys.modules['jax'] = None\n"
+        "import mesheditor_tpu_torch.render as r, mesheditor_tpu_torch.render.gizmo, "
+        "mesheditor_tpu_torch.render.debug_draw, mesheditor_tpu_torch.render.record, "
+        "mesheditor_tpu_torch.render.selection_state, mesheditor_tpu_torch.render.environment\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
+        " or m.startswith(('mesheditor_tpu.', 'jax')))]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)), timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("sub,not_ported_yet", [
     ("mesh", set()),
     ("physics", set()),
+    ("render", set()),
     ("io", {"RealImpactScan", "load_listener_points", "load_realimpact_scan"}),
     ("scene", {  # actions, the action log and snapshots
         "Action", "ActionError", "apply_action", "clamp_field", "FIELD_LIMITS", "AddObject",

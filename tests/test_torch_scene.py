@@ -12,6 +12,8 @@ import dataclasses
 
 import numpy as np
 import pytest
+import scipy.sparse
+import scipy.sparse.linalg
 import torch
 
 import mesheditor_tpu  # noqa: F401  (enables x64)
@@ -165,7 +167,32 @@ def test_port_loads_the_models_the_reference_stored(tmp_path):
     assert sa.synth is not None and sa.synth.device.type == "cpu"
 
 
-def test_strike_and_tuning_follow_reference(tmp_path):
+def _per_mode_scale(ref, e, store, direction, n_samples) -> float:
+    """max_t sum_k |output of mode k alone|: the render's scale before its modes mix.
+
+    A mode shape's sign is arbitrary (ARPACK's random start, which moves with every solve
+    the process has made), and the 3 cm shell's six modes lie within 0.1% of each other, so
+    the sign pattern decides how far they cancel: the mixed peak of one stored model came
+    out between 0.226 and 81.7 across processes, while the float32 difference between the
+    packages stayed near 1e-4. This scale is the same whatever signs the solve gave."""
+    sa = audio_sync.SceneAudio(carry(ref), store, sample_rate=96_000.0, tet_resolution=6,
+                               device="cpu")
+    sa.reconcile()
+    shapes = sa.synth.params.shapes
+    total = np.zeros(n_samples)
+    for k in range(shapes.shape[2]):
+        one = audio_sync.SceneAudio(carry(ref), store, sample_rate=96_000.0,
+                                    tet_resolution=6, device="cpu")
+        assert one.reconcile().loaded == [e]
+        keep = torch.zeros(shapes.shape[2])
+        keep[k] = 1.0
+        one.synth.params.shapes = shapes * keep[None, None, :, None]
+        one.strike(e, 0, direction)
+        total += np.abs(one.render_with_samples(n_samples))
+    return float(total.max())
+
+
+def _strike_and_tuning(tmp_path):
     ref, e = make_scene()
     ref.emplace(e, rc.ModalGainComponent(value=2.0))
     # The 3 cm glass shell rings above 30 kHz: render at 96 kHz so the modes clear the
@@ -178,11 +205,14 @@ def test_strike_and_tuning_follow_reference(tmp_path):
     sa.reconcile()
     np.testing.assert_array_equal(sa.synth.params.out_gain.numpy(),
                                   np.asarray(ra.synth.params.out_gain))
-    sa.strike(e, 0, (0.02, 0.05, 0.01))
-    ra.strike(e, 0, (0.02, 0.05, 0.01))
+    direction = (0.02, 0.05, 0.01)
+    sa.strike(e, 0, direction)
+    ra.strike(e, 0, direction)
     out, rout = sa.render_with_samples(1024), ra.render_with_samples(1024)
     assert isinstance(out, np.ndarray) and np.isfinite(out).all() and np.abs(out).max() > 0
-    assert np.abs(out - rout).max() < SUSTAINED_TOL * np.abs(rout).max()
+    scale = _per_mode_scale(ref, e, tmp_path, direction, 1024)
+    assert scale >= np.abs(rout).max()
+    assert np.abs(out - rout).max() < SUSTAINED_TOL * scale
     # Tuning shifts the fundamental without a re-solve, in both banks alike.
     f1 = float(sa._live[e].modes.freqs[0])
     reg.emplace(e, pc.ModalTuningComponent(fundamental_freq=f1 / 2, t60_scale=1.0))
@@ -192,8 +222,22 @@ def test_strike_and_tuning_follow_reference(tmp_path):
     np.testing.assert_allclose(sa.synth.params.coeff_re.numpy(),
                                np.asarray(ra.synth.params.coeff_re), rtol=0, atol=1e-6)
     # A strike on an entity the bank does not hold is ignored.
-    sa.strike(e + 17, 0, (0.02, 0.05, 0.01))
+    sa.strike(e + 17, 0, direction)
     assert not sa.synth._pending_events
+
+
+def test_strike_and_tuning_follow_reference(tmp_path):
+    _strike_and_tuning(tmp_path)
+
+
+def test_strike_and_tuning_follow_reference_after_prior_arpack_solves(tmp_path):
+    """The same after other shift-invert solves in this process: each one moves ARPACK's
+    random start, and with it the signs of the next solve's modes."""
+    rng = np.random.default_rng(20261016)
+    for n in (120, 160, 200):
+        a = scipy.sparse.random(n, n, density=0.05, random_state=rng)
+        scipy.sparse.linalg.eigsh(a + a.T + 10.0 * scipy.sparse.eye(n), k=3, sigma=0.0)
+    _strike_and_tuning(tmp_path)
 
 
 def test_entity_removal_shrinks_bank(tmp_path):
