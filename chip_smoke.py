@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels | --scene | --render]
+    python3 chip_smoke.py [--kernels | --scene | --render | --files]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
 for 1 s in 512-sample blocks with 16 sustained voices from the physics bridge, and the
 scene-in / audio-out path (a closed surface meshed and solved, a corpus solved into the
-model store, a scene of falling bodies simulated to audio, the command line) and the
+model store, a scene of falling bodies simulated to audio, the command line), the
 render layer (corpus goldens, the falling bodies at 960x720 with supersample 2, a
-turntable recording, the view and record commands) — after
+turntable recording, the view and record commands) and the file formats (the falling
+scene through glTF and back, simulated from the file, the simulate/view/record/sessions
+commands on it, a RealImpact scan compared with its render) — after
 building the CUDA kernels from csrc/ and the tet mesher from native/tetmesher.cpp and
 checking each kernel against its plain PyTorch version on the card. Phases, in order (any
 failure exits non-zero before the final line):
@@ -80,18 +82,36 @@ failure exits non-zero before the final line):
      the CPU by the port's own chunk step and shader (ids equal apart from contested
      pixels, lit values within 1e-4), picks at the body centers and a box select over the
      view equal on both; rasterize (chunk 8, 64, 256) and shade timed apart (median of 5
-     after a warm-up), peak memory, the rasterizer's bound with its formula; a 36-frame
-     turntable of icosphere(4) at 480x360 to PNG frames; `view` and `record` as
-     subprocesses;
+     after a warm-up), the chunk the frame derives (half the free memory), each call's peak
+     memory within 15% of the byte model raster_peak_bytes, the rasterizer's bound with its
+     formula; a 36-frame turntable of icosphere(4) at 480x360 to PNG frames; `view` and
+     `record` as subprocesses;
+  j. files: the falling scene with phase g's models exported to .glb (models embedded),
+     imported into a fresh store, exported and imported again: the two imports' snapshots
+     byte-equal; each import reconciled by SceneAudio with no solve and all 8 models
+     loaded, then simulate_scene for 0.5 s: finite, audible, through both kernels, the two
+     imports' audio bit-identical; import and export walls; as subprocesses on the .glb,
+     `simulate --seconds 0.25 --video` (a wav and PNG frames, no solve), `view
+     --debug-physics` (one collider wireframe per body of the world), `record --frames 6`,
+     and `sessions restore --out s.project` on a session written through actions ("byte-
+     exact", and the project holds the live scene's snapshot); a miniature RealImpact scan
+     (icosphere(4) as a 15 cm ellipsoid) solved at bbox/24 and held by compare_scan
+     (median under 30 cents, match fraction at least 0.5, the impact kernel launched),
+     and solved again at bbox/10 against scipy's shift-invert on that mesh (run in a
+     process of its own beside the rest of the phase; lowest 10 elastic modes within
+     1e-5);
   d. timings.
 
 The line before the last is the card's name and power limit; before it, one JSON line
-with each kernel's main-path launches, parity, times and bound. The last line is
+with each kernel's main-path launches, its launches in phases g and j, parity, times and
+bound. The last line is
 {"ok": true, ...}.
 
 --kernels runs phases 1-3 and a only (the kernels against their plain versions, and their
 times) and ends with "kernels: ok" instead. --scene runs phases 1-2 and e-h only and ends
-with "scene: ok". --render runs phases 1 and i only and ends with "render: ok".
+with "scene: ok". --render runs phases 1 and i only and ends with "render: ok". --files
+runs phases 1-2 and j only (solving the falling scene into a temporary store first) and
+ends with "files: ok".
 """
 
 from __future__ import annotations
@@ -1125,7 +1145,8 @@ def blocks_against_plain():
                 st["voices_per_object"] = max(st["voices_per_object"], args[10])
             st["blocks"] += 1
             st["sounding_blocks"] += peak > 1e-30
-            st["bank"] = list(args[0].coeff_re.shape)
+            st["bank"] = max(st["bank"] or [0, 0], list(args[0].coeff_re.shape),
+                             key=lambda shape: shape[0] * shape[1])
             st["live_impacts"] = max(st["live_impacts"], int(host[2].active.sum()))
             st["max_abs_err"] = max(st["max_abs_err"], err)
             if peak > 1e-30:
@@ -1167,11 +1188,12 @@ def solve_spread(models) -> dict:
     return out
 
 
-def scene_phase(device, card: str, tet_resolution: int = 24) -> dict:
-    """Phase g: SceneAudio's reconcile cycle and simulate_scene on the falling scene.
-    Returns, for each kernel, its launches in the simulate_scene run and the parity record
-    of the checked second run. (A rehearsal off the card
-    passes a coarser tet_resolution.)"""
+def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict:
+    """Phase g: SceneAudio's reconcile cycle and simulate_scene on the falling scene, with
+    its models solved into `store` (a temporary directory when None). Returns, for each
+    kernel, its launches in the simulate_scene run and the parity record of the checked
+    second run ("kernels"), and each body's density and ModalModel as the second run had
+    them ("bodies"). (A rehearsal off the card passes a coarser tet_resolution.)"""
     import torch
 
     from mesheditor_tpu_torch.mesh import cdt, voxel_tets
@@ -1183,7 +1205,8 @@ def scene_phase(device, card: str, tet_resolution: int = 24) -> dict:
 
     reg, bodies = falling_scene()
     start = {e: reg.get(e, c.Transform).translation.copy() for e in bodies}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as store:
+    with (contextlib.nullcontext(store) if store else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_scene_")) as store:
         cdt.NATIVE_MESHES = voxel_tets.VOXEL_MESHES = 0
         lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
         sa = SceneAudio(reg, store, tet_resolution=tet_resolution, device=device)
@@ -1295,7 +1318,9 @@ def scene_phase(device, card: str, tet_resolution: int = 24) -> dict:
         f"{float(step.sum() / walls.sum()):.3f}, bridge {float(bridge.sum() / walls.sum()):.3f}, "
         f"publish + render {float(render.sum() / walls.sum()):.3f}; simulate_scene "
         f"{scene_s:.3f} s in all ({card})")
-    return {kind: {"launches": launches[kind], **parity[kind]} for kind in launches}
+    return {"kernels": {kind: {"launches": launches[kind], **parity[kind]} for kind in launches},
+            "bodies": [(reg2.get(e, c.AcousticMaterialRef).density, reg2.get(e, c.ModalModel))
+                       for e in bodies2]}
 
 
 def cli_phase() -> None:
@@ -1337,60 +1362,7 @@ CONTESTED_SHARE = 5e-4  # of an image's pixels: the port's CPU tests see at most
 # + 1 sub each (their per-triangle differences aside), 3 mul by 1/area, 3 compares for
 # coverage, the depth (3 mul + 2 add), 2 compares for the depth range, 1 for the z-resolve.
 RASTER_FLOPS_PER_PAIR = 23
-GBUFFER_BYTES_PER_PIXEL = 20  # depth f32 + triangle id i32 + 3 barycentrics f32
-
-
-def read_png(path) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of an 8-bit RGB or RGBA PNG, decoded with zlib (the card's
-    machine has no PIL): every filter type, no interlace."""
-    import struct
-    import zlib
-
-    data = Path(path).read_bytes()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG file")
-    pos, idat, head = 8, [], None
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if tag == b"IHDR":
-            head = struct.unpack(">IIBBBBB", body)
-        elif tag == b"IDAT":
-            idat.append(body)
-        elif tag == b"IEND":
-            break
-    w, h, depth, color, _, _, interlace = head
-    if depth != 8 or color not in (2, 6) or interlace:
-        raise ValueError(f"{path}: depth {depth}, color type {color}, interlace {interlace}")
-    bpp = 3 if color == 2 else 4
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, 1 + w * bpp)
-    rows, prev = [], [0] * (w * bpp)
-    for y in range(h):
-        kind, line = int(raw[y, 0]), raw[y, 1:].tolist()
-        if kind == 0:
-            cur = line
-        elif kind == 2:
-            cur = [(v + u) & 255 for v, u in zip(line, prev)]
-        elif kind in (1, 3, 4):
-            cur = [0] * len(line)
-            for i, v in enumerate(line):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = prev[i]
-                c = prev[i - bpp] if i >= bpp else 0
-                if kind == 1:
-                    p = a
-                elif kind == 3:
-                    p = (a + b) >> 1
-                else:  # Paeth
-                    pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                    p = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-                cur[i] = (v + p) & 255
-        else:
-            raise ValueError(f"{path}: row {y} has filter type {kind}")
-        rows.append(cur)
-        prev = cur
-    return np.asarray(rows, np.uint8).reshape(h, w, bpp)[..., :3]
+PEAK_MODEL_RTOL = 0.15  # measured peak memory of a rasterize call against raster_peak_bytes
 
 
 def contested_pixels(tri_buf, tris, clip, pixels, rtol=1e-4) -> list:
@@ -1602,8 +1574,10 @@ def render_phase(device, card: str, size=(960, 720), turntable=(36, 480, 360),
     from mesheditor_tpu_torch.render import rasterize, render_scene
     from mesheditor_tpu_torch.render.camera import view_projection
     from mesheditor_tpu_torch.render.environment import prefilter_environment
-    from mesheditor_tpu_torch.render.raster import project_points, screen_coords
-    from mesheditor_tpu_torch.render.record import record, turntable_frames
+    from mesheditor_tpu_torch.render.raster import (
+        BYTES_PER_PAIR, GBUFFER_BYTES_PER_PIXEL, frame_chunk, project_points, raster_peak_bytes,
+        screen_coords)
+    from mesheditor_tpu_torch.render.record import read_png, record, turntable_frames
     from mesheditor_tpu_torch.render.scene_render import RenderSettings, flatten_scene
     from mesheditor_tpu_torch.mesh import icosphere_surface, save_obj
     from mesheditor_tpu_torch.scene import components as c
@@ -1680,8 +1654,14 @@ def render_phase(device, card: str, size=(960, 720), turntable=(36, 480, 360),
         f"all {len(cpu_boxed)} bodies")
     out.update(n_tris=n_tris, covered=covered, contested=len(differ), img_err=img_err)
 
-    # 3. times by chunk: rasterize and shade apart, median of timing_reps after a warm-up
+    # 3. times by chunk: rasterize and shade apart, median of timing_reps after a warm-up;
+    # the peak memory of each call against the byte model the derived chunk is sized by
     clip = torch.as_tensor(view.clip, device=dev)
+    derived = frame_chunk(settings.chunk, rh, rw, device)
+    free = torch.cuda.mem_get_info(dev)[0] if dev.type == "cuda" else None
+    log(f"[render] derived chunk at {rw}x{rh}: {derived} (budget: half of "
+        + ("the CPU's fixed 4 GiB" if free is None else f"{free / 2**30:.2f} GiB free")
+        + f"; the G-buffer does not depend on it) ({card})")
     pairs = float(rw * rh) * n_tris
     b_ms, b_by = bound(pairs * RASTER_FLOPS_PER_PAIR, rw * rh * GBUFFER_BYTES_PER_PIXEL)
     log(f"[render] rasterizer bound = max(pixel-triangle pairs x {RASTER_FLOPS_PER_PAIR} float "
@@ -1691,20 +1671,27 @@ def render_phase(device, card: str, size=(960, 720), turntable=(36, 480, 360),
         f"{PEAK_BYTES:.3g}) = {b_ms:.3f} ms, bound by {b_by}")
     chunks = {}
     for chunk in (8, 64, 256):
+        g = None
         if dev.type == "cuda":
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
         times = []
         for _ in range(timing_reps + 1):
+            g = None  # one call's G-buffer at a time: the peak is a single call's
             sync()
             t0 = time.perf_counter()
             g = rasterize(clip, view._tris, rw, rh, chunk=chunk, device=device)
             sync()
             times.append((time.perf_counter() - t0) * 1e3)
-        peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+        peak = torch.cuda.max_memory_allocated() - base if dev.type == "cuda" else None
         assert all(torch.equal(a, b) for a, b in zip(g, view.gbuf)), f"chunk {chunk} differs"
         del g
-        chunks[chunk] = {"rasterize_ms": float(np.median(times[1:])), "peak_bytes": peak}
+        model = raster_peak_bytes(rh, rw, chunk)
+        assert peak is None or abs(peak / model - 1.0) < PEAK_MODEL_RTOL, \
+            f"chunk {chunk}: peak {peak} bytes against the byte model's {model}"
+        chunks[chunk] = {"rasterize_ms": float(np.median(times[1:])), "peak_bytes": peak,
+                         "model_bytes": model}
     shade_times = []
     for _ in range(timing_reps + 1):
         sync()
@@ -1714,18 +1701,22 @@ def render_phase(device, card: str, size=(960, 720), turntable=(36, 480, 360),
         shade_times.append((time.perf_counter() - t0) * 1e3)
     shade_ms = float(np.median(shade_times[1:]))
     for chunk, rec in chunks.items():
-        peak = "not measured" if rec["peak_bytes"] is None else f"{rec['peak_bytes'] / 2**30:.2f} GiB"
+        peak = "not measured" if rec["peak_bytes"] is None else (
+            f"{rec['peak_bytes'] / 2**30:.3f} GiB above the allocations before the call")
         log(f"[render] chunk {chunk:3d}: rasterize {rec['rasterize_ms']:.1f} ms (median of "
             f"{timing_reps} after a warm-up, {rec['rasterize_ms'] / b_ms:.0f}x the bound), peak "
-            f"memory {peak}; G-buffer bit-identical to chunk {settings.chunk}'s ({card})")
+            f"memory {peak}, byte model {rec['model_bytes'] / 2**30:.3f} GiB ({rw}x{rh} x "
+            f"({GBUFFER_BYTES_PER_PIXEL} + {BYTES_PER_PAIR} x {chunk}) bytes); G-buffer bit-identical to the "
+            f"derived chunk {derived}'s ({card})")
+    timed = derived if derived in chunks else 256
     log(f"[render] shade {shade_ms:.1f} ms at {rw}x{rh} (3 lights + IBL; median of "
-        f"{timing_reps}); shade share of rasterize + shade at chunk {settings.chunk}: "
-        f"{shade_ms / (shade_ms + chunks[settings.chunk]['rasterize_ms']):.3f} ({card})")
-    out.update(chunks=chunks, shade_ms=shade_ms, bound_ms=b_ms)
+        f"{timing_reps}); shade share of rasterize + shade at chunk {timed}: "
+        f"{shade_ms / (shade_ms + chunks[timed]['rasterize_ms']):.3f} ({card})")
+    out.update(chunks=chunks, shade_ms=shade_ms, bound_ms=b_ms, derived_chunk=derived)
     if dev.type == "cuda":
         # One frame (rasterize at the default chunk, then shade) under torch.profiler.
         def frame():
-            rasterize(clip, view._tris, rw, rh, chunk=settings.chunk, device=device)
+            rasterize(clip, view._tris, rw, rh, chunk=derived, device=device)
             view.shade_frame()
             sync()
 
@@ -1738,7 +1729,7 @@ def render_phase(device, card: str, size=(960, 720), turntable=(36, 480, 360),
             "idle_share": 1.0 - busy / wall_us if busy else None,
             "top": [{"name": n[:70], "count": c, "ms": t / 1e3, "share": t / busy}
                     for n, (c, t) in top]}
-        log(f"[profile] render frame at chunk {settings.chunk} ({card}): " + json.dumps(out["profile"]))
+        log(f"[profile] render frame at chunk {derived} ({card}): " + json.dumps(out["profile"]))
 
     # 4. turntable: 36 frames of icosphere(4) at 480x360 written as PNG frames
     pts, tris = icosphere_surface(4)
@@ -1776,7 +1767,314 @@ def render_phase(device, card: str, size=(960, 720), turntable=(36, 480, 360),
     return out
 
 
-def main() -> int:
+# ---- phase j: files (glTF I/O, the commands on a glTF scene, sessions, RealImpact) ----
+
+REALIMPACT_SCALE = (0.15, 0.12, 0.095)  # tests/test_realimpact_loader.py's bowl-sized ellipsoid
+REALIMPACT_OBJECT = "9_BowlCeramic"
+# scipy's sparse LU of the scan's mesh at bbox/10 (47k dofs) takes ~40 s on one host
+# core; at bbox/24 (125k dofs) its fill, and its time, grow faster than the dofs. So the
+# solve is held to scipy on the same scan meshed at bbox/10.
+ORACLE_TET_RESOLUTION = 10
+
+
+def bound_falling_scene(bodies):
+    """falling_scene() with each body's density and stored ModalModel as `bodies` gives
+    them: the scene a reload from the store sees. Returns (registry, body entities)."""
+    from mesheditor_tpu_torch.scene import components as c
+
+    reg, es = falling_scene()
+    for e, (density, model) in zip(es, bodies):
+        reg.get(e, c.AcousticMaterialRef).density = density
+        reg.emplace(e, replace(model))
+    return reg, es
+
+
+def session_through_actions(root):
+    """A crash-recovery session under `root`, written through actions (the log is written
+    on its writer thread and flushed by close). Returns (the live scene's snapshot, the
+    session directory)."""
+    from mesheditor_tpu_torch.scene import actions as A
+    from mesheditor_tpu_torch.scene.session import Session
+    from mesheditor_tpu_torch.scene.snapshot import snapshot_scene
+
+    session = Session(root=root)
+    for action in (
+            A.AddObject(name="bowl"), A.AddPrimitive(name="ring", kind="torus", size=0.1),
+            A.SetTransform(entity=1, translation=(0.1, 0.2, 0.3),
+                           rotation=(0.9238795, 0.0, 0.3826834, 0.0)),
+            A.SetAcousticMaterial(entity=1, name="Glass"), A.SetParent(entity=2, parent=1),
+            A.SetGain(entity=2, value=0.5), A.SetFundamental(entity=1, freq=440.0),
+            A.SetField(entity=1, component="AcousticMaterialRef", field_name="density",
+                       value=1e9),  # clamped to the limit table's 30,000
+            A.StrikeVertex(entity=1, vertex=3, impulse=(0.0, 1.0, 0.0))):
+        session.apply(action)
+        session.process()
+    session.close()
+    return snapshot_scene(session.registry), session.dir
+
+
+def write_realimpact_scan(root: Path) -> Path:
+    """A miniature RealImpact object directory under `root`, the recipe of
+    tests/test_realimpact_loader.py: the dataset's metadata arrays from a seed, the mesh
+    `icosphere_surface(4)` scaled to a 15 cm bowl-sized ellipsoid (the anisotropic scale
+    splits the sphere's degenerate pairs) and the five impact vertices on it. The
+    recordings come later (`write_recordings`). Returns the directory."""
+    from mesheditor_tpu_torch.io.realimpact import NUM_IMPACT_VERTICES, NUM_LISTENER_POINTS
+    from mesheditor_tpu_torch.mesh import icosphere_surface, save_obj
+
+    obj_dir = root / REALIMPACT_OBJECT
+    pre = obj_dir / "preprocessed"
+    pre.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    n = NUM_LISTENER_POINTS
+    np.save(pre / "angle.npy", np.repeat(np.arange(10) * 36, 60)[:n])
+    np.save(pre / "distance.npy", np.tile(np.repeat([250, 500, 750, 1000], 15), 10)[:n])
+    np.save(pre / "micID.npy", np.tile(np.arange(15), 40)[:n])
+    np.save(pre / "listenerXYZ.npy", rng.uniform(-2000, 2000, (n, 3)))
+    pts, tris = icosphere_surface(4)
+    scale3 = np.asarray(REALIMPACT_SCALE)
+    save_obj(pre / "transformed.obj", pts * scale3, tris)
+    np.save(pre / "vertexXYZ.npy", np.repeat(pts[:NUM_IMPACT_VERTICES] * scale3, n, axis=0))
+    return obj_dir
+
+
+def write_recordings(obj_dir: Path, result) -> None:
+    """The scan's "recordings" at listener point 0: each impact rings at the solved
+    frequencies and decay rates of `result`, weighted by each mode's coupling to a strike
+    along y at the vertex (modes under a tenth of the strongest are left out). Only those
+    five rows are written; the rest of the file stays sparse."""
+    from mesheditor_tpu_torch.io.realimpact import NUM_IMPACT_VERTICES, NUM_LISTENER_POINTS
+
+    freqs = np.asarray(result.modes.freqs, np.float64)
+    shapes = np.asarray(result.modes.shapes, np.float64)
+    expos_of = np.asarray(result.sample_point_of_excitation, np.int64)
+    rates = 6.9078 / np.maximum(np.asarray(result.modes.t60s, np.float64), 1e-3)
+    t = np.arange(24_000) / 48_000.0
+    n = NUM_LISTENER_POINTS
+    rows = np.lib.format.open_memmap(obj_dir / "preprocessed" / "deconvolved_0db.npy",
+                                     mode="w+", dtype=np.float32,
+                                     shape=(n * NUM_IMPACT_VERTICES, t.size))
+    for v in range(NUM_IMPACT_VERTICES):
+        amp = np.abs(shapes[int(expos_of[min(v, expos_of.size - 1)]), :, 1])
+        amp = np.where(amp > 0.1 * amp.max(), amp, 0.0)
+        rows[n * v] = sum(a * np.exp(-t * r) * np.sin(2 * np.pi * f * t)
+                          for f, a, r in zip(freqs, amp, rates) if a > 0)
+    rows.flush()
+
+
+ORACLE_CODE = """
+import sys, time, types
+import numpy as np
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+m = np.load(sys.argv[2])
+mesh = types.SimpleNamespace(points=m["points"], tets=m["tets"])
+t0 = time.perf_counter()
+np.save(sys.argv[3], chip_smoke.host_oracle(mesh, int(sys.argv[4]), float(sys.argv[5])))
+print(time.perf_counter() - t0)
+"""
+
+
+def start_oracle(mesh, n_eig: int, sigma: float, tmp: Path) -> tuple:
+    """host_oracle(mesh, n_eig, sigma) in a process of its own, so that its sparse
+    factorization (minutes at ~10^5 dofs) runs beside the work that follows. Returns (the
+    process, the .npy path its eigenvalues land in)."""
+    np.savez(tmp / "oracle_mesh.npz", points=mesh.points, tets=mesh.tets)
+    out = tmp / "oracle_eigenvalues.npy"
+    proc = subprocess.Popen([sys.executable, "-c", ORACLE_CODE, str(REPO),
+                             str(tmp / "oracle_mesh.npz"), str(out), str(n_eig), repr(sigma)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, out
+
+
+def files_phase(device, card: str, store, bodies=None, tet_resolution: int = 24,
+                sizes=None) -> dict:
+    """Phase j: the falling scene (its models from `store`, bound as `bodies` gives them;
+    solved into `store` first when None) exported to .glb with the models embedded,
+    imported into a fresh store, exported and imported again: a fixed point, played with
+    no solve, bit for bit the same audio from both imports; the simulate, view
+    --debug-physics, record and sessions commands as subprocesses on that file; compare_scan
+    on a miniature RealImpact scan. Every block that the two simulate_scene runs and
+    compare_scan render is held against the plain version (blocks_against_plain). Returns,
+    for each kernel, its launches in the phase's own process and the parity record of its
+    blocks. (A rehearsal off the card passes a coarser tet_resolution and smaller `sizes`:
+    {"seconds", "video", "view", "record"}.)"""
+    from mesheditor_tpu_torch.api import _tetrahedralize, solve_surface
+    from mesheditor_tpu_torch.io.gltf import export_gltf, import_gltf
+    from mesheditor_tpu_torch.io.project import load_project
+    from mesheditor_tpu_torch.io.realimpact import load_realimpact_scan
+    from mesheditor_tpu_torch.io.realimpact_harness import compare_scan
+    from mesheditor_tpu_torch.materials import find_material
+    from mesheditor_tpu_torch.physics.scene_build import build_world
+    from mesheditor_tpu_torch.render.record import read_png
+    from mesheditor_tpu_torch.scene import components as c
+    from mesheditor_tpu_torch.scene.audio_sync import SceneAudio, simulate_scene
+    from mesheditor_tpu_torch.scene.snapshot import snapshot_scene
+    from mesheditor_tpu_torch.solve import lobpcg
+    from mesheditor_tpu_torch.synth import coupled, impact
+    from mesheditor_tpu_torch.types import ModalSolveSettings
+
+    sizes = {"seconds": 0.5, "video": (0.25, 480, 360), "view": (960, 720),
+             "record": (6, 480, 360), **(sizes or {})}
+    if bodies is None:  # run alone: solve the scene into the store first
+        reg, es = falling_scene()
+        t0 = time.perf_counter()
+        report = SceneAudio(reg, store, tet_resolution=tet_resolution, device=device).reconcile()
+        assert report.solved == es, f"solved {report.solved}"
+        bodies = [(reg.get(e, c.AcousticMaterialRef).density, reg.get(e, c.ModalModel))
+                  for e in es]
+        log(f"[files] the falling scene's {len(es)} bodies solved into a temporary store in "
+            f"{time.perf_counter() - t0:.1f} s")
+    impact.LAUNCHES = coupled.LAUNCHES = 0
+    lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
+    settings = ModalSolveSettings(num_modes=6, num_vertices=4, max_mode_freq=20_000.0)
+    sigma = -((2 * np.pi * settings.min_mode_freq) ** 2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_files_") as tmp, \
+            contextlib.ExitStack() as stack:
+        tmp = Path(tmp)
+        # every block rendered in this process, held against the plain version
+        parity = stack.enter_context(blocks_against_plain())
+        # 0. a miniature RealImpact scan, and scipy's eigenvalues of the mesh its solve
+        # will build, in a process of its own from here on
+        scan_dir = write_realimpact_scan(tmp / "realimpact")
+        scan = load_realimpact_scan(scan_dir)
+        oracle_res = min(ORACLE_TET_RESOLUTION, tet_resolution)
+        mesh = _tetrahedralize(scan.positions, scan.triangles, oracle_res, False)
+        oracle, oracle_out = start_oracle(mesh, 16, sigma, tmp)
+        stack.callback(oracle.kill)
+
+        # 1. glTF: export, import, export, import; the two imports are one scene.
+        reg, es = bound_falling_scene(bodies)
+        glb, glb2, fresh = tmp / "falling.glb", tmp / "again.glb", tmp / "fresh_store"
+        t0 = time.perf_counter()
+        export_gltf(reg, glb)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = import_gltf(glb, store_dir=fresh)
+        import_s = time.perf_counter() - t0
+        export_gltf(first, glb2)
+        second = import_gltf(glb2, store_dir=fresh)
+        snap = snapshot_scene(first)
+        assert snap == snapshot_scene(second), "import -> export -> import is not a fixed point"
+        n_models = len(list(first.view(c.ModalModel)))
+        assert n_models == len(es), f"{n_models} models embedded, not {len(es)}"
+        log(f"[files] export {export_s:.3f} s ({glb.stat().st_size} bytes, {len(es)} models "
+            f"embedded), import {import_s:.3f} s into a fresh store; the second import's "
+            f"snapshot equals the first's ({len(snap)} bytes) ({card})")
+        audio = []
+        for name, r in (("first", first), ("second", second)):
+            report = SceneAudio(r, fresh, tet_resolution=tet_resolution, device=device).reconcile()
+            assert not report.solved and len(report.loaded) == len(es), f"{name}: {report}"
+            before = (impact.LAUNCHES, coupled.LAUNCHES)
+            t0 = time.perf_counter()
+            audio.append(simulate_scene(r, fresh, seconds=sizes["seconds"],
+                                        tet_resolution=tet_resolution, device=device))
+            sim_s = time.perf_counter() - t0
+            got = (impact.LAUNCHES - before[0], coupled.LAUNCHES - before[1])
+            assert got[0] > 0 and got[1] > 0, f"{name} import: kernel launches {got}"
+            log(f"[files] {name} import: reconcile solved nothing and loaded {len(report.loaded)}; "
+                f"simulate_scene {sizes['seconds']} s in {sim_s:.3f} s, impact launches "
+                f"{got[0]}, coupled launches {got[1]} ({card})")
+        assert lobpcg.DEVICE_SOLVES == lobpcg.HOST_SOLVES == 0, "an imported scene was solved"
+        assert np.isfinite(audio[0]).all() and np.abs(audio[0]).max() > 0, "silent or not finite"
+        assert np.array_equal(audio[0], audio[1]), "the two imports sound different"
+        for kind in parity:
+            assert parity[kind]["sounding_blocks"] > 0, f"no sounding {kind} block was checked"
+        log(f"[files] both imports' audio bit-identical: {audio[0].size} samples, peak "
+            f"{float(np.abs(audio[0]).max()):.4e}; their blocks against the plain version on "
+            f"host copies of their inputs: " + json.dumps(parity))
+
+        # 2. the commands as subprocesses on the exported file
+        def run(*argv):
+            """One command as a fresh process; the glTF commands run on `device`."""
+            if argv[0] != "sessions":
+                argv = (*argv, "--device", device)
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "mesheditor_tpu_torch", *argv],
+                                  cwd=tmp, capture_output=True, text=True, timeout=600,
+                                  env=dict(os.environ, PYTHONPATH=str(REPO)))
+            assert proc.returncode == 0, f"{argv[0]} exited {proc.returncode}:\n{proc.stderr}"
+            log(f"[cli] {argv[0]} ({time.perf_counter() - t0:.1f} s): "
+                + " | ".join(proc.stdout.replace("\r", "\n").strip().splitlines()[-3:]))
+            return proc.stdout
+
+        secs, vw, vh = sizes["video"]
+        text = run("simulate", glb.name, "--seconds", str(secs), "--out", "sim.wav", "--store",
+                   "sim_store", "--video", "frames.png", "--video-width", str(vw),
+                   "--video-height", str(vh))
+        frames = sorted(tmp.glob("frames_*.png"))
+        assert "solve progress" not in text, "simulate solved a model the file carries"
+        assert (tmp / "sim.wav").stat().st_size > 44 and frames, "simulate wrote no wav or frames"
+        assert read_png(frames[0]).shape == (vh, vw, 3)
+        w, h = sizes["view"]
+        text = run("view", glb.name, "--debug-physics", "--out", "view.png", "--width", str(w),
+                   "--height", str(h))
+        world, _ = build_world(first)
+        assert f"debug overlay: {len(world.bodies)} collider wireframes" in text, text
+        assert read_png(tmp / "view.png").std() > 1.0, "view wrote a flat image"
+        n_rec, rw, rh = sizes["record"]
+        run("record", glb.name, "--out", "spin.png", "--frames", str(n_rec), "--width", str(rw),
+            "--height", str(rh))
+        spun = sorted(tmp.glob("spin_*.png"))
+        assert len(spun) == n_rec and (read_png(spun[0]) != read_png(spun[-1])).any()
+        live, session_dir = session_through_actions(tmp / "sessions")
+        text = run("sessions", "restore", "--root", str(tmp / "sessions"), "--out", "s.project")
+        assert "replay self-test: byte-exact" in text, text
+        assert snapshot_scene(load_project(tmp / "s.project")) == live, \
+            "the project does not hold the session's scene"
+        log(f"[files] {len(frames)} video frames, view overlay {len(world.bodies)} bodies, "
+            f"{n_rec} record frames; session {session_dir.name} restored byte-exact into a "
+            f".project whose snapshot is the live scene's ({len(live)} bytes)")
+
+        # 3. RealImpact: compare_scan on a miniature scan, and the solve against scipy
+        t0 = time.perf_counter()
+        truth = solve_surface(scan.positions, scan.triangles, find_material("Ceramic").properties,
+                              excite_positions=scan.impact_positions, settings=settings,
+                              tet_resolution=tet_resolution, device=device)
+        write_recordings(scan_dir, truth)
+        before = impact.LAUNCHES
+        sounding = parity["impact"]["sounding_blocks"]
+        t1 = time.perf_counter()
+        report = compare_scan(scan_dir, seconds=0.5, settings=settings,
+                              tet_resolution=tet_resolution, device=device)
+        compare_s = time.perf_counter() - t1
+        assert impact.LAUNCHES > before, "compare_scan did not launch the impact kernel"
+        assert parity["impact"]["sounding_blocks"] > sounding, \
+            "no sounding compare_scan block was checked against the plain version"
+        assert report.median_cents < 30.0 and report.match_fraction >= 0.5, \
+            (report.median_cents, report.match_fraction)
+        log(f"[realimpact] scan written and solved in {t1 - t0:.1f} s ({truth.profile.dofs} "
+            f"dofs, {truth.modes.num_modes} modes); compare_scan {compare_s:.1f} s: median "
+            f"{report.median_cents:.3f} cents, match fraction {report.match_fraction:.3f}, "
+            f"impact launches {impact.LAUNCHES - before}, each block held against the plain "
+            f"version, all phase j's blocks now: {json.dumps(parity['impact'])} ({card})")
+        checked = {kind: parity[kind]["blocks"] for kind in parity}
+        launched = {"impact": impact.LAUNCHES, "coupled": coupled.LAUNCHES}
+        assert checked == launched, f"checked blocks {checked} against launches {launched}"
+        coarse = solve_surface(scan.positions, scan.triangles,
+                               find_material("Ceramic").properties,
+                               excite_positions=scan.impact_positions, settings=settings,
+                               tet_resolution=oracle_res, device=device)
+        t0 = time.perf_counter()
+        text, err = oracle.communicate(timeout=900)
+        assert oracle.returncode == 0, f"the scipy oracle exited {oracle.returncode}:\n{err}"
+        ref = np.load(oracle_out)
+        got = coarse.summary.eigenvalues[6:16]
+        rel_f = np.abs(np.sqrt(got) / np.sqrt(ref[6:6 + got.size]) - 1.0)
+        assert rel_f.max() < 1e-5, f"RealImpact solve off scipy by {rel_f.max():.3e}"
+        log(f"[realimpact] the scan solved at bbox/{oracle_res} ({coarse.profile.dofs} dofs) "
+            f"against scipy eigsh on the same mesh ({mesh.points.shape[0]} points, "
+            f"{mesh.tets.shape[0]} tets; scipy {float(text):.1f} s in a process of its own, "
+            f"waited {time.perf_counter() - t0:.1f} s for it at the end): "
+            f"solve {np.round(np.sqrt(got) / (2 * np.pi), 2).tolist()} Hz, scipy "
+            f"{np.round(np.sqrt(ref[6:6 + got.size]) / (2 * np.pi), 2).tolist()} Hz, within "
+            f"{rel_f.max():.3e} relative")
+    return {kind: {"launches": launched[kind], **parity[kind]} for kind in launched}
+
+
+def run(stack: contextlib.ExitStack) -> int:
+    """The phases, as the command line picks them; temporary directories that outlive a
+    phase are entered on `stack`."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     only = parser.add_mutually_exclusive_group()
     only.add_argument("--kernels", action="store_true",
@@ -1787,6 +2085,9 @@ def main() -> int:
     only.add_argument("--render", action="store_true",
                       help="only the render layer (goldens, full width, times, turntable, "
                            "view and record)")
+    only.add_argument("--files", action="store_true",
+                      help="only the build and the files phase (glTF round trip and "
+                           "playback, simulate/view/record/sessions on a .glb, RealImpact)")
     args = parser.parse_args()
     try:
         import torch
@@ -1834,6 +2135,11 @@ def main() -> int:
         scene_phase(device, card)
         cli_phase()
         log("scene: ok")
+        return 0
+    if args.files:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as store:
+            files_phase(device, card, store)
+        log("files: ok")
         return 0
 
     # 3. kernel vs plain on the card
@@ -1956,16 +2262,23 @@ def main() -> int:
     else:
         log(f"[profile] sustained frame loop ({card}): " + json.dumps(prof))
 
-    # (e)-(h) the scene-in / audio-out path
+    # (e)-(h) the scene-in / audio-out path; phase g's store serves phase j
     surface_phase(device, card)
     store_batch_phase(device, card)
-    scene_kernels = scene_phase(device, card)
+    scene_store = stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_scene_"))
+    scene = scene_phase(device, card, store=scene_store)
+    scene_kernels = scene["kernels"]
     cli_phase()
 
     # (i) the render layer: no kernel of its own, and it launches neither resonator kernel
     impact.LAUNCHES = coupled.LAUNCHES = 0
     render_phase(device, card)
     assert impact.LAUNCHES == coupled.LAUNCHES == 0, "the render launched a resonator kernel"
+
+    # (j) files: glTF in and out, the commands on a .glb, sessions, RealImpact (the counts
+    # are set to 0 at its start and read at its end)
+    files_kernels = files_phase(device, card, scene_store, scene["bodies"])
+    assert all(files_kernels[k]["launches"] > 0 for k in files_kernels), files_kernels
 
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
@@ -1977,6 +2290,10 @@ def main() -> int:
         "source": "mesheditor_tpu_torch/csrc/impact_resonator.cu",
         "replaces": "mesheditor_tpu/synth/pallas_impact.py:48",
         "launches": launches, "scene_launches": scene_kernels["impact"]["launches"],
+        "files_launches": files_kernels["impact"]["launches"],
+        "files_blocks": files_kernels["impact"]["blocks"],
+        "files_max_abs_err": files_kernels["impact"]["max_abs_err"],
+        "files_max_rel_err": files_kernels["impact"]["max_rel_err"],
         "scene_max_abs_err": scene_kernels["impact"]["max_abs_err"],
         "scene_max_rel_err": scene_kernels["impact"]["max_rel_err"],
         "max_abs_err": bench_stats["max_abs_err"],
@@ -1987,6 +2304,10 @@ def main() -> int:
         "source": "mesheditor_tpu_torch/csrc/coupled_resonator.cu",
         "replaces": "mesheditor_tpu/synth/pallas_coupled.py:40",
         "launches": coupled_launches, "scene_launches": scene_kernels["coupled"]["launches"],
+        "files_launches": files_kernels["coupled"]["launches"],
+        "files_blocks": files_kernels["coupled"]["blocks"],
+        "files_max_abs_err": files_kernels["coupled"]["max_abs_err"],
+        "files_max_rel_err": files_kernels["coupled"]["max_rel_err"],
         "scene_max_abs_err": scene_kernels["coupled"]["max_abs_err"],
         "scene_max_rel_err": scene_kernels["coupled"]["max_rel_err"],
         "max_abs_err": c512["max_abs_err"],
@@ -1997,6 +2318,11 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0
+
+
+def main() -> int:
+    with contextlib.ExitStack() as stack:
+        return run(stack)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""File I/O (counterpart of mesheditor_tpu/io): WAV files and the content-addressed modal
-model store. The RealImpact and glTF readers are not ported yet."""
+"""File I/O (counterpart of mesheditor_tpu/io): WAV files, the content-addressed modal
+model store and the RealImpact dataset. glTF (`io.gltf`) and projects (`io.project`) are
+imported by name, as in the reference."""
 
 from .audio_files import read_wav, write_wav
 from .model_store import load_modal_model, save_modal_model, modal_model_key
+from .realimpact import RealImpactScan, load_listener_points, load_realimpact_scan
 
 __all__ = [
     "read_wav",
@@ -10,4 +12,7 @@ __all__ = [
     "load_modal_model",
     "save_modal_model",
     "modal_model_key",
+    "RealImpactScan",
+    "load_listener_points",
+    "load_realimpact_scan",
 ]

@@ -12,6 +12,8 @@ the same buffers the reference's selection compute passes consume
 The G-buffer does not depend on the chunk size: every per-pixel value is elementwise in
 its triangle, the chunk-internal resolve takes the first minimum (`torch.argmin`, as
 `jnp.argmin`) and the merge is a strict `<`, so the earliest triangle wins exact ties.
+The memory does: a step holds about BYTES_PER_PAIR bytes per pixel-triangle pair, so
+`frame_chunk` sizes the chunk to the frame under a budget of the device's free memory.
 
 Near-plane handling: `clip_near` replaces plane-crossing triangles with their clipped
 fans on host (a handful per frame), so the rasterizer never sees a w <= eps vertex;
@@ -94,6 +96,44 @@ def _rasterize_chunk(clip, idx, first_id, px, py, width, height, cull_back, gbuf
     depth.copy_(torch.where(better, zk, depth))
     tri.copy_(torch.where(better, (k[..., 0] + first_id).to(torch.int32), tri))
     bary.copy_(torch.where(better[..., None], new_bary, bary))
+
+
+# Peak bytes of one chunk step per pixel-triangle pair: three barycentric rows and the
+# depth (float32), the coverage mask and the product being summed into the depth. The
+# card's peaks at 1920x1440 (0.66 / 3.69 / 14.07 GiB at chunk 8 / 64 / 256) rise by 21.0
+# bytes per pair. Per pixel, the G-buffer adds GBUFFER_BYTES_PER_PIXEL.
+BYTES_PER_PAIR = 21
+GBUFFER_BYTES_PER_PIXEL = 20  # depth f32 + triangle id i32 + 3 barycentrics f32
+MAX_CHUNK = 256
+CPU_BUDGET_BYTES = 4 << 30
+
+
+def raster_peak_bytes(height: int, width: int, chunk: int) -> int:
+    """The memory `rasterize` adds at its peak for a (height, width) frame at `chunk`: the
+    G-buffer and one chunk step's temporaries."""
+    return int(height) * int(width) * (GBUFFER_BYTES_PER_PIXEL + BYTES_PER_PAIR * int(chunk))
+
+
+def derive_chunk(height: int, width: int, budget: int) -> int:
+    """The largest power of two up to MAX_CHUNK whose step's temporaries
+    (BYTES_PER_PAIR x height x width x chunk) fit in `budget` bytes; at least 1."""
+    fit = int(budget) // (BYTES_PER_PAIR * int(height) * int(width))
+    chunk = max(min(MAX_CHUNK, fit), 1)
+    return 1 << (chunk.bit_length() - 1)
+
+
+def frame_chunk(chunk, height: int, width: int, device) -> int:
+    """`chunk` when the caller set one, else `derive_chunk` under a budget of half the
+    card's free memory now (a fixed CPU_BUDGET_BYTES on the CPU). height and width are the
+    rasterized (supersampled) size."""
+    if chunk is not None:
+        return int(chunk)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        budget = torch.cuda.mem_get_info(dev)[0] // 2
+    else:
+        budget = CPU_BUDGET_BYTES
+    return derive_chunk(height, width, budget)
 
 
 def rasterize(clip, tris, width: int, height: int, chunk: int = 8,

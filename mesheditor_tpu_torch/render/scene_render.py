@@ -22,7 +22,7 @@ import torch
 from .._device import resolve_device
 from .camera import Camera, frame_points, view_projection
 from .picking import box_select, pick_element, pick_object
-from .raster import GBuffer, clip_near, project_points, rasterize
+from .raster import GBuffer, clip_near, frame_chunk, project_points, rasterize
 from .shading import (
     LightBank, MaterialTable, build_atlas, shade, vertex_normals, vertex_tangents,
 )
@@ -43,10 +43,11 @@ class RenderSettings:
     # linear, or an already-prefiltered PrefilteredEnv. Prefiltering is cached per
     # source array (the reference prefilters once at load, IblPrefilterPipelines.h).
     environment: object = None
-    # Triangles rasterized per step; the G-buffer does not depend on it. Each step holds
-    # a few (H, W, chunk) float32 temporaries: at 1920x1440, chunk 256 peaks at 14 GiB on
-    # the card and was the fastest of 8, 64 and 256 there (PERF.md §5).
-    chunk: int = 256
+    # Triangles rasterized per step; the G-buffer does not depend on it. None derives it
+    # from the frame: the largest power of two up to 256 whose step fits in half the free
+    # memory (raster.frame_chunk). At 1920x1440 a step holds ~21 bytes per pixel-triangle
+    # pair, 14 GiB at chunk 256, which was the fastest of 8, 64 and 256 there (PERF.md §5).
+    chunk: int | None = None
 
 
 @dataclass
@@ -110,24 +111,11 @@ def _visible(r, e, memo) -> bool:
     return base
 
 
-def flatten_scene(r, device="cuda") -> SceneBatch:
-    """Registry -> draw batch, its material, light and texture rows on `device`.
-    Requires world transforms to be derived (r.process())."""
+def _drawn_surfaces(r, vis_memo: dict):
+    """Each visible mesh entity with geometry, in entity order: (entity, surface, its
+    drawn positions (deformed or morphed) in its own frame, triangles, world matrix)."""
     from ..scene.armature import DeformedSurface
-    from ..scene.components import (
-        LightComponent, MeshSurface, VisualMaterial, WorldTransform,
-    )
-    from .shading import LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT
-
-    dev = resolve_device(device)
-    vis_memo: dict = {}
-
-    pos_parts, nrm_parts, tri_parts, obj_parts, entities = [], [], [], [], []
-    base_colors, metallics, roughnesses, emissives, uv_transforms = [], [], [], [], []
-    f0_rows, ext_rows, sheen_rows = [], [], []
-    uv_parts, tan_parts = [], []
-    textures, mr_texs, em_texs, nrm_texs, occ_texs = [], [], [], [], []
-    offset = 0
+    from ..scene.components import MeshSurface, WorldTransform
 
     for e, surf in sorted(r.view(MeshSurface), key=lambda kv: kv[0]):
         if not _visible(r, e, vis_memo):
@@ -141,7 +129,34 @@ def flatten_scene(r, device="cuda") -> SceneBatch:
         if p.shape[0] == 0 or t.shape[0] == 0:
             continue
         wt = r.get(e, WorldTransform)
-        m = np.asarray(wt.matrix) if wt is not None else np.eye(4)
+        yield e, surf, p, t, (np.asarray(wt.matrix) if wt is not None else np.eye(4))
+
+
+def world_points(r) -> np.ndarray:
+    """The world-space vertices that flatten_scene would draw, as (N, 3) float32 on the
+    host with nothing put on a device, or one point at the origin when nothing is drawn:
+    what a camera frames. Requires world transforms to be derived (r.process())."""
+    parts = [p @ m[:3, :3].T + m[:3, 3] for _e, _s, p, _t, m in _drawn_surfaces(r, {})]
+    return np.concatenate(parts).astype(np.float32) if parts else np.zeros((1, 3), np.float32)
+
+
+def flatten_scene(r, device="cuda") -> SceneBatch:
+    """Registry -> draw batch, its material, light and texture rows on `device`.
+    Requires world transforms to be derived (r.process())."""
+    from ..scene.components import LightComponent, VisualMaterial, WorldTransform
+    from .shading import LIGHT_DIRECTIONAL, LIGHT_POINT, LIGHT_SPOT
+
+    dev = resolve_device(device)
+    vis_memo: dict = {}
+
+    pos_parts, nrm_parts, tri_parts, obj_parts, entities = [], [], [], [], []
+    base_colors, metallics, roughnesses, emissives, uv_transforms = [], [], [], [], []
+    f0_rows, ext_rows, sheen_rows = [], [], []
+    uv_parts, tan_parts = [], []
+    textures, mr_texs, em_texs, nrm_texs, occ_texs = [], [], [], [], []
+    offset = 0
+
+    for e, surf, p, t, m in _drawn_surfaces(r, vis_memo):
         pw = p @ m[:3, :3].T + m[:3, 3]
         # Normals via inverse-transpose so non-uniform scales light correctly.
         nrm_local = vertex_normals(p, t)
@@ -344,8 +359,9 @@ class SceneRenderer:
         self._tri_obj = (np.asarray(batch.tri_obj)[self._tri_src]
                          if self._tri_src.size else np.zeros(0, np.int32))
         with profile.scope("render/rasterize", sync=self.device):
+            chunk = frame_chunk(settings.chunk, self._rh, self._rw, self.device)
             self.gbuf: GBuffer = rasterize(clip, self._tris, self._rw, self._rh,
-                                           chunk=settings.chunk, device=self.device)
+                                           chunk=chunk, device=self.device)
 
     def shade_frame(self) -> torch.Tensor:
         """The lit frame at the rasterized (supersampled) size, on the device."""
@@ -486,7 +502,8 @@ def render_mesh(positions, triangles, camera: Camera | None = None,
     rw, rh = settings.width * ss, settings.height * ss
     mvp = view_projection(camera, settings.width, settings.height)
     clip = project_points(mvp, positions, device=dev)
-    gbuf = rasterize(clip, triangles, rw, rh, chunk=settings.chunk, device=dev)
+    gbuf = rasterize(clip, triangles, rw, rh, chunk=frame_chunk(settings.chunk, rh, rw, dev),
+                     device=dev)
     img = shade(
         gbuf, positions, normals, triangles, tri_obj, MaterialTable.default(1, device=dev),
         LightBank.default(device=dev), eye=np.asarray(camera.eye, np.float32),

@@ -1,5 +1,5 @@
-"""The scene registry, its components and the scene-reactive audio (counterpart of
-mesheditor_tpu/scene; actions, the action log and snapshots are not ported yet)."""
+"""The scene registry, its components, the action system with its log and snapshots, and
+the scene-reactive audio (counterpart of mesheditor_tpu/scene)."""
 
 from .registry import Registry, Entity
 from .components import (
@@ -18,6 +18,27 @@ from .components import (
     PERSISTENT_COMPONENTS,
     DERIVED_COMPONENTS,
 )
+from .actions import (
+    Action,
+    ActionError,
+    apply_action,
+    clamp_field,
+    FIELD_LIMITS,
+    AddObject,
+    RemoveObject,
+    SetField,
+    SetTransform,
+    SetParent,
+    SetAcousticMaterial,
+    SetModalModel,
+    StrikeVertex,
+    SilenceObject,
+    SetFundamental,
+    SetT60Scale,
+    SetGain,
+)
+from .log import ActionLog, replay
+from .snapshot import snapshot_scene, restore_scene, verify_coverage
 
 __all__ = [
     "Registry", "Entity",
@@ -25,4 +46,10 @@ __all__ = [
     "AcousticMaterialRef", "SolveSettingsComponent", "ModalModel",
     "ModalGainComponent", "ModalTuningComponent", "SoundVertices", "ExciteState",
     "PERSISTENT_COMPONENTS", "DERIVED_COMPONENTS",
+    "Action", "ActionError", "apply_action", "clamp_field", "FIELD_LIMITS",
+    "AddObject", "RemoveObject", "SetField", "SetTransform", "SetParent",
+    "SetAcousticMaterial", "SetModalModel", "StrikeVertex", "SilenceObject",
+    "SetFundamental", "SetT60Scale", "SetGain",
+    "ActionLog", "replay",
+    "snapshot_scene", "restore_scene", "verify_coverage",
 ]

@@ -1,5 +1,8 @@
-"""`python -m mesheditor_tpu_torch solve|info|render` on the CPU, in-process: a surface file
-goes in, a stored modal model comes out, is inspected and rendered to a wav."""
+"""`python -m mesheditor_tpu_torch` on the CPU, in-process: a surface file goes in, a stored
+modal model comes out, is inspected and rendered to a wav (solve|info|render); a mesh and a
+glTF scene are screenshot and recorded (view|record); a glTF scene with an embedded model
+is simulated to audio and video (simulate); a session is listed and restored to a project
+(sessions)."""
 
 import re
 
@@ -130,10 +133,121 @@ def test_record_writes_png_frames(tmp_path, capsys):
 
 @pytest.mark.parametrize("command", ["view", "record"])
 def test_gltf_is_refused_until_its_import_is_ported(tmp_path, command):
+    """glTF import is ported: `view` and `record` hand a .glb to the importer, and a
+    truncated file fails there (the GLB header cannot be read), not at a refusal."""
+    import struct
+
+    import mesheditor_tpu_torch.__main__ as cli
+
     scene = tmp_path / "scene.glb"
     scene.write_bytes(b"glTF")
-    with pytest.raises(SystemExit, match="glTF import is not ported yet"):
+    with pytest.raises(struct.error):
         main([command, str(scene), "--device", "cpu"])
+    assert "not ported yet" not in open(cli.__file__).read()
+
+
+@pytest.fixture(scope="module")
+def drop_scene(tmp_path_factory):
+    """A .glb of a floor and a 10 cm ball dropped onto it from 8 cm, its modal model (a
+    synthetic 6-mode model) embedded: the file plays with no solve."""
+    from mesheditor_tpu_torch.io.gltf import export_gltf
+    from mesheditor_tpu_torch.io.model_store import save_modal_model
+    from mesheditor_tpu_torch.scene import components as c
+    from mesheditor_tpu_torch.scene.registry import Registry
+    from mesheditor_tpu_torch.types import MassProperties, ModalModes
+
+    root = tmp_path_factory.mktemp("drop")
+    rng = np.random.default_rng(7)
+    modes = ModalModes(freqs=np.linspace(900.0, 4000.0, 6), t60s=np.linspace(0.6, 0.2, 6),
+                       shapes=rng.normal(0.0, 0.02, (4, 6, 3)).astype(np.float32),
+                       positions=rng.normal(0.0, 0.04, (4, 3)))
+    model = save_modal_model(root / "store", modes, MassProperties(mass=0.5))
+    r = Registry()
+    floor = r.create()
+    r.emplace(floor, c.Name("floor"))
+    r.emplace(floor, c.RigidBodyComponent(shape_kind="plane"))
+    ball = r.create()
+    pts, tris = icosphere_surface(2)
+    r.emplace(ball, c.Name("ball"))
+    r.emplace(ball, c.MeshSurface(positions=pts * 0.05, triangles=tris))
+    r.emplace(ball, c.Transform(translation=np.array([0.0, 0.13, 0.0])))
+    r.emplace(ball, c.RigidBodyComponent(shape_kind="sphere", radius=0.05, is_dynamic=True,
+                                         mass=0.5, linear_velocity=np.array([0.3, 0.0, 0.0])))
+    r.emplace(ball, c.AcousticMaterialRef())
+    r.emplace(ball, c.SolveSettingsComponent())
+    r.emplace(ball, c.ModalModel(path=str(model)))
+    export_gltf(r, root / "drop.glb")
+    return root / "drop.glb"
+
+
+def test_simulate_plays_the_embedded_model_and_records_frames(drop_scene, tmp_path, capsys):
+    main(["simulate", str(drop_scene), "--seconds", "0.2", "--out", str(tmp_path / "s.wav"),
+          "--store", str(tmp_path / "store"), "--video", str(tmp_path / "f.png"),
+          "--video-fps", "20", "--video-width", "32", "--video-height", "24",
+          "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "scene: 2 entities" in text and "solve progress" not in text  # nothing solved
+    assert re.search(r"simulated 0.2s of physics audio -> \S+s.wav \(peak \d", text)
+    audio, rate = read_wav(tmp_path / "s.wav")
+    assert rate == 48000 and audio.shape == (1, 19 * 512)
+    assert np.isfinite(audio).all() and np.abs(audio).max() == pytest.approx(0.9, abs=1e-3)
+    frames = sorted(tmp_path.glob("f_*.png"))
+    assert 3 <= len(frames) <= 5 and f"video: {len(frames)} frames" in text
+    assert _png_pixels(frames[0]).shape == (24, 32, 3)
+
+
+def test_view_gltf_overlays_the_colliders(drop_scene, tmp_path, capsys):
+    out = tmp_path / "v.png"
+    main(["view", str(drop_scene), "--out", str(out), "--width", "48", "--height", "36",
+          "--supersample", "1", "--debug-physics", "--device", "cpu"])
+    text = capsys.readouterr().out
+    assert "scene: 1 mesh entities, 320 triangles" in text
+    assert "debug overlay: 2 collider wireframes" in text and "(48x36, smooth)" in text
+    assert _png_pixels(out).std() > 1.0
+
+
+def test_record_gltf_frames_the_world_space_scene(drop_scene, tmp_path, capsys):
+    """The camera frames the scene's world-space points: the ball, 13 cm up, is in every
+    frame, and the frames turn."""
+    main(["record", str(drop_scene), "--out", str(tmp_path / "spin.png"), "--frames", "2",
+          "--width", "32", "--height", "24", "--device", "cpu"])
+    assert "(2 frames @ 12.0 fps)" in capsys.readouterr().out
+    first, last = (_png_pixels(p) for p in sorted(tmp_path.glob("spin_*.png")))
+    background = np.round(np.asarray([0.125, 0.133, 0.153]) * 255)
+    assert (np.abs(first - background).max(-1) > 2).mean() > 0.05  # the ball covers pixels
+    assert not np.array_equal(first, last)
+
+
+def test_sessions_list_and_restore_to_a_project(tmp_path, capsys):
+    from mesheditor_tpu_torch.io.project import load_project
+    from mesheditor_tpu_torch.scene import actions as A
+    from mesheditor_tpu_torch.scene.session import Session
+    from mesheditor_tpu_torch.scene.snapshot import snapshot_scene
+
+    root = tmp_path / "sessions"
+    main(["sessions", "list", "--root", str(root)])
+    assert capsys.readouterr().out.strip() == "no sessions"
+    s = Session(root=root)
+    for a in (A.AddObject(name="bowl"), A.AddPrimitive(name="ring", kind="torus", size=0.1),
+              A.SetAcousticMaterial(entity=1, name="Iron"), A.SetGain(entity=2, value=0.25)):
+        s.apply(a)
+        s.process()
+    s.close()
+    main(["sessions", "list", "--root", str(root)])
+    assert capsys.readouterr().out.strip() == f"{s.dir.name}: 4 actions"
+    main(["sessions", "restore", "--root", str(root), "--out", str(tmp_path / "s.project")])
+    text = capsys.readouterr().out
+    assert f"restored {s.dir.name}: 2 named objects: ['bowl', 'ring']" in text
+    assert "replay self-test: byte-exact" in text
+    assert snapshot_scene(load_project(tmp_path / "s.project")) == snapshot_scene(s.registry)
+
+
+def test_simulate_defaults_to_the_card(drop_scene, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card refusal cannot be observed")
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["simulate", str(drop_scene), "--seconds", "0.05", "--out",
+              str(tmp_path / "s.wav"), "--store", str(tmp_path / "store")])
 
 
 def test_view_defaults_to_the_card(tmp_path):

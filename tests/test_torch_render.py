@@ -168,6 +168,48 @@ def test_gbuffer_does_not_depend_on_chunk():
         assert torch.equal(x, y)
 
 
+def test_derived_chunk_follows_the_frame():
+    """The chunk is sized to the frame under a budget in bytes: a power of two, at least
+    1, at most 256. Half of the ~75 GiB an 80 GB card has free keeps 256 at 1920x1440;
+    the CPU's 4 GiB takes a smaller chunk for 4K at supersample 2 (7680x4320)."""
+    card = (75 << 30) // 2
+    assert praster.derive_chunk(1440, 1920, card) == 256
+    assert praster.derive_chunk(4320, 7680, praster.CPU_BUDGET_BYTES) == 4
+    assert praster.derive_chunk(1440, 1920, praster.CPU_BUDGET_BYTES) == 64
+    assert praster.derive_chunk(4320, 7680, 1) == 1
+    for budget in (1, 10 ** 6, 3 * 10 ** 8, 10 ** 9, 10 ** 12):
+        chunk = praster.derive_chunk(720, 960, budget)
+        assert chunk & (chunk - 1) == 0 and 1 <= chunk <= 256
+        assert chunk == 1 or praster.BYTES_PER_PAIR * 720 * 960 * chunk <= budget
+    assert praster.frame_chunk(None, 4320, 7680, "cpu") == 4
+    assert praster.frame_chunk(8, 4320, 7680, "cpu") == 8  # an explicit chunk is honoured
+    assert pscene.RenderSettings().chunk is None
+    assert praster.raster_peak_bytes(1440, 1920, 256) == 1440 * 1920 * (20 + 21 * 256)
+
+
+def test_gbuffer_at_the_derived_chunk_equals_chunk_8():
+    """A scene rendered at the derived chunk (256 here) and at chunk 8: the G-buffer bit
+    for bit, and so the image."""
+    pts, tris = icosphere_surface(2)
+    settings = pscene.RenderSettings(width=80, height=60)
+    derived = pscene.render_mesh(pts, tris, settings=settings, device="cpu")
+    settings.chunk = 8
+    fixed = pscene.render_mesh(pts, tris, settings=settings, device="cpu")
+    np.testing.assert_array_equal(derived, fixed)
+    from mesheditor_tpu_torch.scene import components as pc
+    from mesheditor_tpu_torch.scene.registry import Registry
+
+    port = Registry()
+    install_default_pipeline(port)
+    port.emplace(port.create(), pc.MeshSurface(positions=np.asarray(pts),
+                                               triangles=np.asarray(tris)))
+    views = [pscene.render_scene(port, settings=pscene.RenderSettings(80, 60, chunk=chunk),
+                                 device="cpu") for chunk in (None, 8)]
+    assert praster.frame_chunk(None, 60, 80, "cpu") == 256
+    for a, b in zip(views[0].gbuf, views[1].gbuf):
+        assert torch.equal(a, b)
+
+
 def test_empty_and_degenerate_inputs():
     got = praster.rasterize(np.zeros((0, 4)), np.zeros((0, 3)), 8, 4, device="cpu")
     ref = jraster.rasterize(np.zeros((0, 4)), np.zeros((0, 3)), 8, 4)
@@ -320,6 +362,7 @@ def test_shade_matches_reference_on_its_gbuffer(case):
     # The port's own flatten of the carried scene: the same soup, rows and light bank.
     reg.process()
     batch = pscene.flatten_scene(reg, device="cpu")
+    np.testing.assert_array_equal(pscene.world_points(reg), batch.positions)
     jb = jv.batch
     for f in ("positions", "normals", "triangles", "tri_obj", "uvs", "tangents"):
         a, b = getattr(batch, f), getattr(jb, f)

@@ -108,13 +108,14 @@ def test_chip_smoke_builds_the_same_scenes():
 
 
 def test_read_png_decodes_as_pil_does(tmp_path):
-    """chip_smoke.read_png (zlib only) against PIL on every golden (PIL's adaptive filters)
+    """The port's PNG reader (`render.record.read_png`, zlib only; chip_smoke.py decodes
+    the goldens with it on the card) against PIL on every golden (PIL's adaptive filters)
     and on the port's own filter-0 files."""
-    from mesheditor_tpu_torch.render.record import encode_png
+    from mesheditor_tpu_torch.render.record import encode_png, read_png
 
     for name in SCENES:
         path = os.path.join(FIXTURE_DIR, f"{name}.png")
-        np.testing.assert_array_equal(chip_smoke.read_png(path), _pil_png(path))
+        np.testing.assert_array_equal(read_png(path), _pil_png(path))
     rgb = np.random.default_rng(5).integers(0, 256, (7, 5, 3), dtype=np.uint8)
     (tmp_path / "probe.png").write_bytes(encode_png(rgb))
-    np.testing.assert_array_equal(chip_smoke.read_png(tmp_path / "probe.png"), rgb)
+    np.testing.assert_array_equal(read_png(tmp_path / "probe.png"), rgb)
