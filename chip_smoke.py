@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels | --scene | --render | --files]
+    python3 chip_smoke.py [--kernels | --scene | --render | --files | --viewer]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
@@ -11,7 +11,9 @@ model store, a scene of falling bodies simulated to audio, the command line), th
 render layer (corpus goldens, the falling bodies at 960x720 with supersample 2, a
 turntable recording, the view and record commands) and the file formats (the falling
 scene through glTF and back, simulated from the file, the simulate/view/record/sessions
-commands on it, a RealImpact scan compared with its render) — after
+commands on it, a RealImpact scan compared with its render) and the interactive viewer
+(the edit command's repaint, picks, gizmo and strike-to-audio, in process and as a
+server) — after
 building the CUDA kernels from csrc/ and the tet mesher from native/tetmesher.cpp and
 checking each kernel against its plain PyTorch version on the card. Phases, in order (any
 failure exits non-zero before the final line):
@@ -100,10 +102,23 @@ failure exits non-zero before the final line):
      and solved again at bbox/10 against scipy's shift-invert on that mesh (run in a
      process of its own beside the rest of the phase; lowest 10 elastic modes within
      1e-5);
+  k. viewer: the falling scene exported to .glb and opened by ViewerApp at edit's defaults
+     (960x600, supersample 1, audio on): the cold frame, the frame after an orbit (median of
+     5, rasterize and shade from the profile scopes), a click at the centre of a wooden
+     block's projected bounds (selects it), the tinted frame (exactly the block's pick
+     mask, from a host copy of the G-buffer, is tinted), a translate drag (the block moves,
+     one SetTransform a move), a strike on the block (every surface solved: per entity
+     dofs, modes, f1, seconds and the path that answered; 3 impact launches and no
+     coupled launch, each block held against the plain version as in phase g; audible;
+     the spectrum's peaks within 16 Hz of the block's modes; the session byte-exact on
+     replay), a second strike's wall; then `edit --audio --port 0` as a fresh process with
+     HOME in a temporary directory: an orbit, a click, strike mode, a strike, /frame (an
+     RGB PNG of 960x600), /audio (RIFF/WAVE), /inspect?entity=abc (400), /physics and
+     /verify-replay (byte-exact), each timed;
   d. timings.
 
 The line before the last is the card's name and power limit; before it, one JSON line
-with each kernel's main-path launches, its launches in phases g and j, parity, times and
+with each kernel's main-path launches, its launches in phases g, j and k, parity, times and
 bound. The last line is
 {"ok": true, ...}.
 
@@ -111,7 +126,7 @@ bound. The last line is
 times) and ends with "kernels: ok" instead. --scene runs phases 1-2 and e-h only and ends
 with "scene: ok". --render runs phases 1 and i only and ends with "render: ok". --files
 runs phases 1-2 and j only (solving the falling scene into a temporary store first) and
-ends with "files: ok".
+ends with "files: ok". --viewer runs phases 1-2 and k only and ends with "viewer: ok".
 """
 
 from __future__ import annotations
@@ -2072,6 +2087,349 @@ def files_phase(device, card: str, store, bodies=None, tet_resolution: int = 24,
     return {kind: {"launches": launched[kind], **parity[kind]} for kind in launched}
 
 
+# ---- phase k: the viewer (the edit command): repaint, pick, gizmo, strike-to-audio ----
+
+VIEWER_SIZE = (960, 600)  # edit's defaults (supersample 1)
+TINT = (255, 160, 40)  # the viewer's selection blend colour
+
+
+def to_pixels(app, points) -> np.ndarray:
+    """World points -> (N, 2) pixel coordinates in the app's current view, on the host."""
+    from mesheditor_tpu_torch.render.camera import view_projection
+    from mesheditor_tpu_torch.render.raster import project_points, screen_coords
+
+    mvp = view_projection(app.camera(), app.width, app.height)
+    return screen_coords(project_points(mvp, points, device="cpu").numpy(), app.width,
+                         app.height)
+
+
+def projected_center(app, entity) -> tuple[int, int]:
+    """The pixel at the centre of an entity's projected bounds in the app's current view."""
+    from mesheditor_tpu_torch.scene import components as c
+
+    r = app.registry
+    r.process()
+    m = np.asarray(r.get(entity, c.WorldTransform).matrix, np.float64)
+    p = np.asarray(r.get(entity, c.MeshSurface).positions, np.float64) @ m[:3, :3].T + m[:3, 3]
+    xy = to_pixels(app, p)
+    x, y = (xy.min(0) + xy.max(0)) / 2
+    return int(x), int(y)
+
+
+def gizmo_pixel(app) -> tuple[int, int]:
+    """A pixel on the selected entity's x-axis translate handle: the first point along the
+    projected centre-to-tip segment (from 40% of the way out) that grabs an axis handle."""
+    from mesheditor_tpu_torch.render.gizmo import handle_points, pick_handle
+
+    cam, center, size = app.camera(), app._gizmo_center(), app.radius * 0.18
+    o, tip = to_pixels(app, np.stack([center, handle_points(center, size)["tips"][0]]))
+    for t in np.linspace(0.4, 1.0, 25):
+        x, y = o + t * (tip - o)
+        h = pick_handle(cam, app.width, app.height, x, y, center, mode="translate", size=size)
+        if h is not None and not h.plane:
+            return int(x), int(y)
+    raise AssertionError("no axis handle of the gizmo can be grabbed on screen")
+
+
+def http(base: str, path: str, body=None, timeout: float = 600.0) -> tuple[int, bytes, float]:
+    """One request to the viewer's server, timed from request to full response: (status,
+    body, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(urllib.request.Request(base + path, data=data),
+                                    timeout=timeout) as r:
+            code, payload = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, payload = e.code, e.read()
+    return code, payload, time.perf_counter() - t0
+
+
+def edit_subprocess(device, card: str, glb: Path, tmp: Path, size, block: int,
+                    click: tuple[int, int]) -> None:
+    """`python -m mesheditor_tpu_torch edit <glb> --audio --port 0` as a fresh process with
+    HOME in `tmp`: it prints the port it bound; then an orbit, a click on `block` at
+    `click` (the pixel after that orbit), strike mode, a strike, a frame, the audio, a bad
+    inspect query, the physics panel and a replay check, each timed. Fails if the process
+    exits on its own or writes a traceback."""
+    from mesheditor_tpu_torch.render.record import decode_png
+
+    home = tmp / "home"
+    home.mkdir()
+    env = dict(os.environ, HOME=str(home), PYTHONPATH=str(REPO))
+    env.pop("MESHEDITOR_TPU_SESSION_DIR", None)
+    w, h = size
+    out, err = (open(tmp / f"edit_{n}.txt", "w") for n in ("out", "err"))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mesheditor_tpu_torch", "edit", str(glb), "--audio", "--port",
+         "0", "--width", str(w), "--height", str(h), "--device", device],
+        cwd=tmp, stdout=out, stderr=err, env=env)
+    try:
+        base = None
+        while base is None:
+            assert proc.poll() is None, f"edit exited {proc.returncode}:\n" + \
+                (tmp / "edit_err.txt").read_text()
+            assert time.perf_counter() - t0 < 300, "edit printed no address in 300 s"
+            found = [line for line in (tmp / "edit_out.txt").read_text().splitlines()
+                     if line.startswith("viewer on http://127.0.0.1:")]
+            if found:
+                base = found[0].split()[2].rstrip("/")
+            else:
+                time.sleep(0.1)
+        printed_s = time.perf_counter() - t0
+        code, body, state_s = http(base, "/state")
+        assert code == 200, code
+        first_state_s = time.perf_counter() - t0
+        session_dir = Path(json.loads(body)["session_dir"])
+        assert session_dir.parent == home / ".mesheditor_tpu" / "sessions", session_dir
+        walls = {"state": state_s}
+        x, y = click
+        for name, path, ev in (
+                ("orbit", "/event", {"type": "orbit", "dx": 8, "dy": 0}),
+                ("click", "/event", {"type": "click", "x": x, "y": y}),
+                ("strike mode", "/event", {"type": "mode", "mode": "strike"}),
+                ("strike", "/event", {"type": "click", "x": x, "y": y})):
+            code, body, walls[name] = http(base, path, ev)
+            assert code == 200, (name, code, body[:200])
+            st = json.loads(body)
+            if name == "click":
+                assert st["selected"] == block, f"the click selected {st['selected']}"
+        assert st["struck"] and st["has_audio"], st["audio"]
+        code, body, walls["frame"] = http(base, "/frame")
+        assert code == 200 and body[25] == 2, "the frame is not an RGB PNG"
+        assert decode_png(body).shape == (h, w, 4), decode_png(body).shape
+        code, body, walls["audio"] = http(base, "/audio")
+        assert code == 200 and body[:4] == b"RIFF" and body[8:12] == b"WAVE", body[:12]
+        code, body, walls["inspect abc"] = http(base, "/inspect?entity=abc")
+        assert code == 400 and "error" in json.loads(body), (code, body)
+        code, body, walls["physics"] = http(base, "/physics")
+        assert code == 200 and json.loads(body)["bodies"], body[:200]
+        code, body, walls["verify-replay"] = http(base, "/verify-replay", {})
+        assert code == 200 and json.loads(body)["byte_exact"], body
+        assert proc.poll() is None, f"edit exited on its own ({proc.returncode})"
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+        out.close()
+        err.close()
+    errors = (tmp / "edit_err.txt").read_text()
+    assert "Traceback" not in errors, errors
+    log(f"[viewer] edit subprocess: address printed {printed_s:.2f} s, first /state answered "
+        f"{first_state_s:.2f} s after start; request walls (s): "
+        + json.dumps({k: round(v, 4) for k, v in walls.items()}) + f" ({card})")
+
+
+def viewer_phase(device, card: str, size=VIEWER_SIZE, orbits: int = 5,
+                 edit_process: bool = True) -> dict:
+    """Phase k: the falling scene (a plane and 8 bodies, 23,552 triangles) exported to .glb
+    and opened by ViewerApp at `size` with audio on, in process: the cold frame, the frame
+    after an orbit (median of `orbits`, rasterize and shade from the profile scopes), a
+    click on a wooden block at the centre of its projected bounds (selects it), the tinted
+    frame (exactly the block's pick mask is tinted), a translate drag (the block moves, one
+    SetTransform action a move), strike mode and a strike on the block: every surface
+    solved (per entity: dofs, modes, f1, seconds, the path that answered, or the recorded
+    error), 3 impact launches and no coupled launch, each block held against the plain
+    version, audible, its spectrum's peaks on the block's solved frequencies, the session
+    byte-exact on replay; then `edit` as a fresh process over HTTP. Returns each kernel's
+    launches in the strike and the parity record of its blocks. (A rehearsal off the card
+    passes a smaller `size` and fewer `orbits`.)"""
+    import torch
+
+    from mesheditor_tpu_torch import api, profile
+    from mesheditor_tpu_torch.app import ViewerApp
+    from mesheditor_tpu_torch.io.gltf import export_gltf, import_gltf
+    from mesheditor_tpu_torch.render.raster import frame_chunk
+    from mesheditor_tpu_torch.render.record import decode_png
+    from mesheditor_tpu_torch.scene import components as c
+    from mesheditor_tpu_torch.solve import lobpcg
+    from mesheditor_tpu_torch.synth import coupled, impact
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    w, h = size
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_viewer_") as tmp, \
+            contextlib.ExitStack() as stack:
+        tmp = Path(tmp)
+        glb = tmp / "falling.glb"
+        export_gltf(falling_scene()[0], glb)
+        reg = import_gltf(glb)
+        blocks = [e for e, rb in sorted(reg.view(c.RigidBodyComponent)) if rb.shape_kind == "box"]
+        assert len(blocks) == 4, f"wooden blocks {blocks}"
+        block = blocks[0]
+        t0 = time.perf_counter()
+        app = ViewerApp(reg, w, h, session_root=tmp / "sessions", audio=True, device=device)
+        app_s = time.perf_counter() - t0
+
+        # 1. frames: cold, then after an orbit (rasterize and shade from the profile)
+        t0 = time.perf_counter()
+        app.frame_png()
+        sync()
+        cold_s = time.perf_counter() - t0
+        n_tris = int(app._renderer_cache.batch.triangles.shape[0])
+        assert n_tris == 23_552, f"{n_tris} triangles"
+        profile.reset()
+        profile.enabled = True
+        walls = []
+        try:
+            for _ in range(orbits):
+                app.handle({"type": "orbit", "dx": 8, "dy": 0})
+                t0 = time.perf_counter()
+                app.frame_png()
+                sync()
+                walls.append(time.perf_counter() - t0)
+        finally:
+            profile.enabled = False
+        scopes = profile.totals()
+        rast_n, rast_s = scopes["render/rasterize"]
+        shade_n, shade_s = scopes["render/shade"]
+        assert rast_n == shade_n == orbits, scopes
+        chunk = frame_chunk(None, h, w, dev)
+        log(f"[viewer] ViewerApp on the .glb ({len(reg.entities())} entities, {n_tris} "
+            f"triangles) at {w}x{h}: app {app_s:.3f} s, cold frame_png {cold_s:.3f} s; after an "
+            f"orbit frame_png median {np.median(walls) * 1e3:.1f} ms of {orbits} (all "
+            f"{[round(x * 1e3, 1) for x in walls]}), rasterize {rast_s / rast_n * 1e3:.1f} ms "
+            f"and shade {shade_s / shade_n * 1e3:.2f} ms a frame (profile scopes), derived "
+            f"chunk {chunk} ({card})")
+
+        # 2. picking: a click at the block's centre selects it; the tint is its pick mask
+        x, y = projected_center(app, block)
+        st = app.handle({"type": "click", "x": x, "y": y})
+        assert st["selected"] == block, f"the click at {(x, y)} selected {st['selected']}"
+        t0 = time.perf_counter()
+        tinted = decode_png(app.frame_png())[..., :3]
+        sync()
+        tint_s = time.perf_counter() - t0
+        rend = app._renderer_cache
+        tri = rend.gbuf.tri.cpu().numpy()
+        row = rend.batch.entities.index(block)
+        mask = np.zeros(tri.shape, bool)
+        mask[tri >= 0] = rend._tri_obj[tri[tri >= 0]] == row
+        base = np.clip(rend.image() * 255.0, 0, 255).astype(np.uint8)
+        want = base.copy()
+        want[mask] = (0.6 * base[mask] + 0.4 * np.array(TINT)).astype(np.uint8)
+        assert mask.sum() > 0 and np.array_equal(tinted, want), \
+            "the tinted pixels are not the block's pick mask"
+        rng = np.random.default_rng(20261017)
+        for py, px in [(y, x), *zip(rng.integers(0, h, 64), rng.integers(0, w, 64))]:
+            assert (rend.pick_entity(int(px), int(py)) == block) == mask[py, px], (px, py)
+        log(f"[viewer] click at {(x, y)} selected block {block}; tinted frame {tint_s:.3f} s: "
+            f"its {int(mask.sum())} tinted pixels are exactly the block's pick mask (a host "
+            f"copy of gbuf.tri through _tri_obj)")
+
+        # 3. gizmo: a translate drag moves the block, one SetTransform action a move
+        app.handle({"type": "mode", "mode": "translate"})
+        gx, gy = gizmo_pixel(app)
+        before = np.asarray(reg.get(block, c.Transform).translation, np.float64).copy()
+        app.handle({"type": "drag_start", "x": gx, "y": gy})
+        assert app.drag is not None, "the drag did not grab the handle"
+        for dx in (12, 24):
+            app.handle({"type": "drag_move", "x": gx + dx, "y": gy})
+        app.handle({"type": "drag_end"})
+        after = np.asarray(app.registry.get(block, c.Transform).translation, np.float64)
+        assert not np.allclose(before, after), "the drag did not move the block"
+        app.session.log.drain()
+        moves = (app.session.dir / "actions.log").read_text().count('"t":"SetTransform"')
+        assert moves == 2, f"{moves} SetTransform actions for 2 moves"
+        t0 = time.perf_counter()
+        app.frame_png()
+        sync()
+        gizmo_s = time.perf_counter() - t0
+        log(f"[viewer] translate drag from {(gx, gy)}: block moved by "
+            f"{np.round(after - before, 4).tolist()} m, {moves} SetTransform actions logged; "
+            f"frame with the gizmo {gizmo_s:.3f} s")
+
+        # 4. strike: every surface solved, then 1 s rendered through the impact kernel
+        app.handle({"type": "mode", "mode": "strike"})
+        x, y = projected_center(app, block)
+        solves = []
+        inner = api.solve_surface
+
+        def timed_solve(*args, **kwargs):
+            paths = (lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES)
+            t0 = time.perf_counter()
+            rec = {"entity": len(solves)}
+            solves.append(rec)
+            try:
+                res = inner(*args, **kwargs)
+            except ValueError as exc:
+                rec["error"] = str(exc)[:80]
+                raise
+            finally:
+                sync()
+                rec["s"] = round(time.perf_counter() - t0, 3)
+            f1 = float(res.modes.freqs[0]) if res.modes.num_modes else None
+            rec.update(dofs=int(res.profile.dofs), modes=int(res.modes.num_modes),
+                       f1=f1 and round(f1, 2), iterations=int(res.profile.restarts),
+                       device_solves=lobpcg.DEVICE_SOLVES - paths[0],
+                       host_solves=lobpcg.HOST_SOLVES - paths[1])
+            return res
+
+        api.solve_surface = timed_solve
+        stack.callback(setattr, api, "solve_surface", inner)
+        impact.LAUNCHES = coupled.LAUNCHES = 0
+        with blocks_against_plain() as parity:
+            t0 = time.perf_counter()
+            st = app.handle({"type": "click", "x": x, "y": y})
+            sync()
+            first_s = time.perf_counter() - t0
+        api.solve_surface = inner
+        launched = {"impact": impact.LAUNCHES, "coupled": coupled.LAUNCHES}
+        meshed = [e for e in app.registry.entities() if app.registry.has(e, c.MeshSurface)]
+        for rec, e in zip(solves, meshed):
+            rec["entity"] = int(e)
+        log(f"[viewer] first strike {first_s:.3f} s, of which the solves "
+            f"{sum(r['s'] for r in solves):.3f} s; per entity: " + json.dumps(solves)
+            + f"; solve progress: {json.dumps(app.solve_progress)} ({card})")
+        assert st["selected"] == block and st["struck"] and st["has_audio"], st["audio"]
+        assert launched == {"impact": 3, "coupled": 0}, f"kernel launches {launched}"
+        checked = {kind: parity[kind]["blocks"] for kind in parity}
+        assert checked == launched, f"checked blocks {checked} against launches {launched}"
+        audio = app._last_audio
+        assert audio.shape == (48_128,) and np.isfinite(audio).all(), "strike not finite"
+        assert np.abs(audio).max() > 0, "the strike is silent"
+        obj = app._synth_objects[block]
+        freqs = np.asarray(app._synth_results[obj].modes.freqs, np.float64)
+        wave = app.waveform()
+        assert wave["available"], wave
+        peaks = np.asarray(wave["peaks_hz"])
+        assert (np.abs(peaks[:, None] - freqs[None, :]).min(1) <= 16.0).all(), \
+            f"spectrum peaks {peaks.tolist()} off the block's modes {np.round(freqs, 1).tolist()}"
+        bank = app.audio_state()
+        log(f"[viewer] strike on block {block} (bank {bank['bank_objects']}x{bank['bank_modes']}):"
+            f" impact launches {launched['impact']}, coupled {launched['coupled']}; each block "
+            f"against the plain version on host copies of its inputs: "
+            + json.dumps(parity["impact"]) + f"; audio peak {float(np.abs(audio).max()):.4e}, "
+            f"spectrum peaks {peaks.tolist()} Hz on the block's modes "
+            f"{np.round(freqs[:6], 1).tolist()} Hz")
+        app.frame_png()  # the repaint a click makes first, out of the strike's wall
+        impact.LAUNCHES = 0
+        t0 = time.perf_counter()
+        app.handle({"type": "click", "x": x, "y": y})
+        sync()
+        second_s = time.perf_counter() - t0
+        assert impact.LAUNCHES == 3 and coupled.LAUNCHES == 0, (impact.LAUNCHES, coupled.LAUNCHES)
+        verdict = app.verify()
+        assert verdict["byte_exact"], verdict
+        log(f"[viewer] second strike {second_s * 1e3:.1f} ms with the frame cached (3 impact "
+            f"launches, no solve, not checked against the plain version); session replays "
+            f"byte-exact ({card})")
+
+        # 5. the edit command as a fresh process, the click pixel from a fresh app's view
+        if edit_process:
+            fresh = ViewerApp(import_gltf(glb), w, h, session_root=tmp / "fresh", device=device)
+            fresh.handle({"type": "orbit", "dx": 8, "dy": 0})
+            edit_subprocess(device, card, glb, tmp, size, block, projected_center(fresh, block))
+    return {kind: {"launches": launched[kind], **parity[kind]} for kind in launched}
+
+
 def run(stack: contextlib.ExitStack) -> int:
     """The phases, as the command line picks them; temporary directories that outlive a
     phase are entered on `stack`."""
@@ -2088,6 +2446,9 @@ def run(stack: contextlib.ExitStack) -> int:
     only.add_argument("--files", action="store_true",
                       help="only the build and the files phase (glTF round trip and "
                            "playback, simulate/view/record/sessions on a .glb, RealImpact)")
+    only.add_argument("--viewer", action="store_true",
+                      help="only the build and the viewer phase (the edit command's frames, "
+                           "picks, gizmo and strike, in process and as a server)")
     args = parser.parse_args()
     try:
         import torch
@@ -2140,6 +2501,10 @@ def run(stack: contextlib.ExitStack) -> int:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_scene_") as store:
             files_phase(device, card, store)
         log("files: ok")
+        return 0
+    if args.viewer:
+        viewer_phase(device, card)
+        log("viewer: ok")
         return 0
 
     # 3. kernel vs plain on the card
@@ -2280,6 +2645,10 @@ def run(stack: contextlib.ExitStack) -> int:
     files_kernels = files_phase(device, card, scene_store, scene["bodies"])
     assert all(files_kernels[k]["launches"] > 0 for k in files_kernels), files_kernels
 
+    # (k) the viewer: the edit command's repaint, picks, gizmo and strike (the counts are
+    # set to 0 just before the strike and read just after it)
+    viewer_kernels = viewer_phase(device, card)
+
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
         f"{block_median:.3f} ({card})")
@@ -2294,6 +2663,10 @@ def run(stack: contextlib.ExitStack) -> int:
         "files_blocks": files_kernels["impact"]["blocks"],
         "files_max_abs_err": files_kernels["impact"]["max_abs_err"],
         "files_max_rel_err": files_kernels["impact"]["max_rel_err"],
+        "viewer_launches": viewer_kernels["impact"]["launches"],
+        "viewer_blocks": viewer_kernels["impact"]["blocks"],
+        "viewer_max_abs_err": viewer_kernels["impact"]["max_abs_err"],
+        "viewer_max_rel_err": viewer_kernels["impact"]["max_rel_err"],
         "scene_max_abs_err": scene_kernels["impact"]["max_abs_err"],
         "scene_max_rel_err": scene_kernels["impact"]["max_rel_err"],
         "max_abs_err": bench_stats["max_abs_err"],
@@ -2308,6 +2681,7 @@ def run(stack: contextlib.ExitStack) -> int:
         "files_blocks": files_kernels["coupled"]["blocks"],
         "files_max_abs_err": files_kernels["coupled"]["max_abs_err"],
         "files_max_rel_err": files_kernels["coupled"]["max_rel_err"],
+        "viewer_launches": viewer_kernels["coupled"]["launches"],
         "scene_max_abs_err": scene_kernels["coupled"]["max_abs_err"],
         "scene_max_rel_err": scene_kernels["coupled"]["max_rel_err"],
         "max_abs_err": c512["max_abs_err"],

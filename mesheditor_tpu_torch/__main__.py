@@ -4,10 +4,10 @@ mesheditor_tpu/__main__.py).
 The headless analog of the reference's CLI (main.cpp:1387-1433 — --headless/--render/
 --screenshot modes): solve meshes to modal models, render strikes to wav, inspect models,
 simulate a glTF scene to audio (and video), screenshot and record a mesh or a glTF scene,
-and list or restore crash-recovery sessions, without an interactive session. `--device`
-names where the solves and the renders run ("cuda" by default; "cpu" runs the plain
-PyTorch path on the host). The reference package's `edit` (the interactive viewer),
-`bench` and `warmup` are not ported.
+and list or restore crash-recovery sessions, without an interactive session; `edit` serves
+the interactive viewer/editor to a browser. `--device` names where the solves and the
+renders run ("cuda" by default; "cpu" runs the plain PyTorch path on the host). The
+reference package's `bench` and `warmup` are not ported.
 """
 
 from __future__ import annotations
@@ -236,6 +236,27 @@ def cmd_view(args):
     print(f"wrote {args.out} ({settings.width}x{settings.height}, {settings.mode})")
 
 
+def cmd_edit(args):
+    """Interactive viewer/editor served to a browser (reference: the windowed app,
+    main.cpp:847-1185). Frames, solves and the strike's audio run on --device; a .project
+    loads as a project, any other file as glTF."""
+    from .app import ViewerApp, serve
+
+    registry = None
+    if args.scene:
+        if str(args.scene).endswith(".project"):
+            from .io.project import load_project
+
+            registry = load_project(args.scene)
+        else:
+            from .io.gltf import import_gltf
+
+            registry = import_gltf(args.scene)
+    app = ViewerApp(registry, width=args.width, height=args.height, audio=args.audio,
+                    device=args.device)
+    serve(app, port=args.port)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mesheditor_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -315,6 +336,16 @@ def main(argv=None):
                    help="overlay collider wireframes (glTF scenes)")
     v.add_argument("--device", default="cuda")
     v.set_defaults(fn=cmd_view)
+
+    ed = sub.add_parser("edit", help="interactive browser viewer/editor")
+    ed.add_argument("scene", nargs="?", default=None, help="glTF/.project to open")
+    ed.add_argument("--port", type=int, default=8731, help="0 binds a free port (printed)")
+    ed.add_argument("--audio", action="store_true",
+                    help="solve modal models at the first strike; strike mode plays audio")
+    ed.add_argument("--width", type=int, default=960)
+    ed.add_argument("--height", type=int, default=600)
+    ed.add_argument("--device", default="cuda")
+    ed.set_defaults(fn=cmd_edit)
 
     args = ap.parse_args(argv)
     args.fn(args)

@@ -132,12 +132,15 @@ def _drawn_surfaces(r, vis_memo: dict):
         yield e, surf, p, t, (np.asarray(wt.matrix) if wt is not None else np.eye(4))
 
 
-def world_points(r) -> np.ndarray:
+def world_points(r, origin_if_empty: bool = True) -> np.ndarray:
     """The world-space vertices that flatten_scene would draw, as (N, 3) float32 on the
-    host with nothing put on a device, or one point at the origin when nothing is drawn:
-    what a camera frames. Requires world transforms to be derived (r.process())."""
+    host with nothing put on a device: what a camera frames. When nothing is drawn, one
+    point at the origin, or none with `origin_if_empty=False`. Requires world transforms
+    to be derived (r.process())."""
     parts = [p @ m[:3, :3].T + m[:3, 3] for _e, _s, p, _t, m in _drawn_surfaces(r, {})]
-    return np.concatenate(parts).astype(np.float32) if parts else np.zeros((1, 3), np.float32)
+    if parts:
+        return np.concatenate(parts).astype(np.float32)
+    return np.zeros((1 if origin_if_empty else 0, 3), np.float32)
 
 
 def flatten_scene(r, device="cuda") -> SceneBatch:
@@ -434,6 +437,23 @@ class SceneRenderer:
             return snap(res)
         a, b = (snap(v) for v in res)
         return (min(a, b), max(a, b))
+
+    def entity_mask(self, entity: int) -> np.ndarray:
+        """(height, width) bool on the host: the pixels whose front triangle (in any of
+        their supersamples) belongs to `entity`, from one copy of the triangle-id buffer.
+        Clipped triangles map to their source object through _tri_obj."""
+        s = self.settings
+        rows = [i for i, e in enumerate(self.batch.entities) if e == entity]
+        if not rows or self._tris.size == 0:
+            return np.zeros((s.height, s.width), bool)
+        tri = self.gbuf.tri.cpu().numpy()
+        hit = tri >= 0
+        mask = np.zeros(tri.shape, bool)
+        mask[hit] = self._tri_obj[tri[hit]] == rows[0]
+        ss = max(int(s.supersample), 1)
+        if ss > 1:
+            mask = mask.reshape(s.height, ss, s.width, ss).any(axis=(1, 3))
+        return mask
 
     def box_select_entities(self, x0, y0, x1, y1) -> list:
         ss = max(int(self.settings.supersample), 1)

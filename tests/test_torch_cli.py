@@ -2,7 +2,7 @@
 modal model comes out, is inspected and rendered to a wav (solve|info|render); a mesh and a
 glTF scene are screenshot and recorded (view|record); a glTF scene with an embedded model
 is simulated to audio and video (simulate); a session is listed and restored to a project
-(sessions)."""
+(sessions); the interactive viewer is served on a free port and driven over HTTP (edit)."""
 
 import re
 
@@ -257,3 +257,106 @@ def test_view_defaults_to_the_card(tmp_path):
     save_obj(tmp_path / "ball.obj", pts, tris)
     with pytest.raises(RuntimeError, match="cuda"):
         main(["view", str(tmp_path / "ball.obj"), "--out", str(tmp_path / "x.png")])
+
+
+def test_edit_defaults_to_the_card_and_raises_before_binding_a_port(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card refusal cannot be observed")
+    import mesheditor_tpu_torch.app as app_pkg
+
+    bound = []
+    monkeypatch.setattr(app_pkg, "serve", lambda *a, **k: bound.append(a))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.delenv("MESHEDITOR_TPU_SESSION_DIR", raising=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["edit", "--port", "0"])
+    assert not bound and not (tmp_path / ".mesheditor_tpu").exists()
+
+
+def test_edit_opens_a_project(tmp_path, monkeypatch):
+    """A .project loads through io.project and is what the served app edits."""
+    import mesheditor_tpu_torch.app as app_pkg
+    from mesheditor_tpu_torch.io.project import save_project
+    from mesheditor_tpu_torch.scene import actions as A
+    from mesheditor_tpu_torch.scene.session import Session
+    from mesheditor_tpu_torch.scene.snapshot import snapshot_scene
+
+    s = Session(root=tmp_path / "sessions")
+    for a in (A.AddPrimitive(name="ring", kind="torus", size=0.1),
+              A.SetAcousticMaterial(entity=1, name="Glass")):
+        s.apply(a)
+        s.process()
+    s.close()
+    save_project(tmp_path / "ring.project", s.registry)
+    served = []
+    monkeypatch.setattr(app_pkg, "serve", lambda app, port: served.append((app, port)))
+    monkeypatch.setenv("MESHEDITOR_TPU_SESSION_DIR", str(tmp_path / "edit_sessions"))
+    main(["edit", str(tmp_path / "ring.project"), "--port", "0", "--width", "96", "--height",
+          "60", "--device", "cpu"])
+    (app, port), = served
+    assert port == 0 and (app.width, app.height, app.device.type) == (96, 60, "cpu")
+    assert snapshot_scene(app.registry) == snapshot_scene(s.registry)
+    assert [o["name"] for o in app.state()["objects"]] == ["ring"]
+
+
+def test_edit_serves_a_gltf_scene_over_http(drop_scene, tmp_path):
+    """`edit scene.glb --port 0` as a fresh process: it prints the port it bound, serves
+    the state, a click, a frame, a bad inspect query (400) and a byte-exact replay, and
+    records its session under HOME."""
+    import json
+    import os
+    import subprocess
+    import sys
+    import time
+    import urllib.error
+    import urllib.request
+    from pathlib import Path
+
+    from mesheditor_tpu_torch.render.record import decode_png
+
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, HOME=str(tmp_path), PYTHONPATH=str(repo))
+    env.pop("MESHEDITOR_TPU_SESSION_DIR", None)
+    out = open(tmp_path / "out.txt", "w")
+    proc = subprocess.Popen([sys.executable, "-m", "mesheditor_tpu_torch", "edit",
+                             str(drop_scene), "--port", "0", "--width", "96", "--height", "60",
+                             "--device", "cpu"], stdout=out, stderr=subprocess.STDOUT, env=env)
+    try:
+        deadline = time.monotonic() + 120
+        while not re.search(r"viewer on http://127.0.0.1:(\d+)/",
+                            (tmp_path / "out.txt").read_text()):
+            assert proc.poll() is None, (tmp_path / "out.txt").read_text()
+            assert time.monotonic() < deadline, "edit printed no address"
+            time.sleep(0.2)
+        port = re.search(r"viewer on http://127.0.0.1:(\d+)/",
+                         (tmp_path / "out.txt").read_text()).group(1)
+        base = f"http://127.0.0.1:{port}"
+
+        def call(path, body=None):
+            data = None if body is None else json.dumps(body).encode()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(base + path, data=data),
+                                            timeout=60) as r:
+                    return r.status, r.read()
+            except urllib.error.HTTPError as e:
+                return e.code, e.read()
+
+        code, body = call("/state")
+        assert code == 200 and [o["name"] for o in json.loads(body)["objects"]] == ["floor", "ball"]
+        session_dir = Path(json.loads(body)["session_dir"])
+        assert session_dir.parent == tmp_path / ".mesheditor_tpu" / "sessions"
+        code, body = call("/event", {"type": "click", "x": 48, "y": 30})
+        assert code == 200 and json.loads(body)["selected_name"] == "ball"
+        code, body = call("/frame")
+        assert code == 200 and decode_png(body).shape == (60, 96, 4)
+        assert call("/inspect?entity=abc")[0] == 400
+        code, body = call("/inspect?entity=2")
+        assert code == 200 and "RigidBodyComponent" in json.loads(body)["components"]
+        code, body = call("/verify-replay", {})
+        assert code == 200 and json.loads(body)["byte_exact"]
+        assert proc.poll() is None
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        out.close()
+    assert "Traceback" not in (tmp_path / "out.txt").read_text()

@@ -46,7 +46,8 @@ def test_imports_with_jax_blocked():
         " 'render.picking', 'render.scene_render', 'render.selection_state', 'render.gizmo',"
         " 'render.debug_draw', 'render.record', 'io.gltf', 'io.project', 'io.realimpact',"
         " 'io.realimpact_harness', 'scene.actions', 'scene.field_edit', 'scene.log',"
-        " 'scene.session', 'scene.snapshot', 'scene.timeline']\n"
+        " 'scene.session', 'scene.snapshot', 'scene.timeline', 'app', 'app.viewer', 'app.page',"
+        " 'viz']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
@@ -62,6 +63,8 @@ def test_imports_with_jax_blocked():
 def test_no_source_imports_jax_or_reference():
     paths = [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
     assert len(paths) > 50
+    for module in ("app/__init__.py", "app/viewer.py", "app/page.py", "viz.py"):
+        assert PKG / module in paths, module
     for path in paths:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -112,6 +115,7 @@ def test_render_layer_imports_neither_jax_nor_the_reference():
     ("render", set()),
     ("io", set()),
     ("scene", set()),
+    ("app", set()),
 ])
 def test_public_names_match_the_reference_package(sub, not_ported_yet):
     """Each ported subpackage exports what the reference's `__init__` exports, less the
@@ -124,6 +128,23 @@ def test_public_names_match_the_reference_package(sub, not_ported_yet):
     assert not_ported_yet <= set(ref.__all__)
     for name in port.__all__:
         assert type(getattr(port, name)) is type(getattr(ref, name)), name
+
+
+def test_viewer_and_viz_import_without_jax_or_matplotlib():
+    """The viewer's modules and viz import with JAX and matplotlib both out of reach (viz
+    imports matplotlib only when a function is called)."""
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['matplotlib'] = None\n"
+        "import mesheditor_tpu_torch.viz, mesheditor_tpu_torch.app.viewer, "
+        "mesheditor_tpu_torch.app.page\n"
+        "from mesheditor_tpu_torch.app import ViewerApp, serve\n"
+        "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
+        " or m.startswith(('mesheditor_tpu.', 'jax', 'matplotlib')))]\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(REPO)), timeout=120)
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_precision_pins():
