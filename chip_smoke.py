@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels | --scene | --render | --files | --viewer]
+    python3 chip_smoke.py [--kernels | --scene | --render | --files | --viewer | --multichip]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
@@ -73,7 +73,9 @@ failure exits non-zero before the final line):
      by the plain version on host copies of the block's own arguments (the scene's bank
      shape, slots and voices) and held to the kernels' tolerances; the spread of the
      repeated solves of one request (frequencies, mode-shape signs) is printed;
-  h. cli: `python -m mesheditor_tpu_torch solve`, `info` and `render` as subprocesses;
+  h. cli: `python -m mesheditor_tpu_torch warmup --set quickstart` (the torus solved and
+     rendered: 51,402 dofs), then `solve`, `info` and `render`, as subprocesses, each with
+     its wall;
   i. render: the render layer, plain PyTorch on the card (no kernel of its own). Six corpus
      scenes (supersampled, cuboid_flat_pointlight, spotlight_floor, textured_quad,
      torus_wireframe, ibl_spheres), built with the port's components, each within one
@@ -84,10 +86,10 @@ failure exits non-zero before the final line):
      the CPU by the port's own chunk step and shader (ids equal apart from contested
      pixels, lit values within 1e-4), picks at the body centers and a box select over the
      view equal on both; rasterize (chunk 8, 64, 256) and shade timed apart (median of 5
-     after a warm-up), the chunk the frame derives (half the free memory), each call's peak
-     memory within 15% of the byte model raster_peak_bytes, the rasterizer's bound with its
-     formula; a 36-frame turntable of icosphere(4) at 480x360 to PNG frames; `view` and
-     `record` as subprocesses;
+     after a warm-up with --render, of 3 in the whole run), the chunk the frame derives
+     (half the free memory), each call's peak memory within 15% of the byte model
+     raster_peak_bytes, the rasterizer's bound with its formula; a 36-frame turntable of
+     icosphere(4) at 480x360 to PNG frames; `view` and `record` as subprocesses;
   j. files: the falling scene with phase g's models exported to .glb (models embedded),
      imported into a fresh store, exported and imported again: the two imports' snapshots
      byte-equal; each import reconciled by SceneAudio with no solve and all 8 models
@@ -115,11 +117,23 @@ failure exits non-zero before the final line):
      HOME in a temporary directory: an orbit, a click, strike mode, a strike, /frame (an
      RGB PNG of 960x600), /audio (RIFF/WAVE), /inspect?entity=abc (400), /physics and
      /verify-replay (byte-exact), each timed;
+  l. multichip: the multi-device layer over torch.distributed, one process per rank
+     (parallel/launch.py:spawn). NCCL asked for more ranks than cards is refused. l1: a
+     mesh of every card under NCCL (on a one-card machine one rank, which still makes every
+     NCCL call): the bench box solved with mesh= (elements over tp) to 250 modes, f1 within
+     1e-4 of 5103.1 Hz, every eigenvalue in tests/test_parallel.py's cluster-aware band of
+     phase 5's unsharded solve and equal on every rank; the impact second and the sustained
+     second through shard_synth (objects over dp). l2: two ranks sharing cuda:0 under gloo
+     (real cross-rank sums): dryrun_multichip(2), then the same solve at tp = 2 with its
+     wall and the count and bytes of its all_reduces, and the two renders at dp = 2. Every
+     rank launches both kernels (the coupled one in each of the 94 blocks), each render's
+     mix is within 2e-5 (impact) and 5e-5 (coupled) x peak of the unsharded card render,
+     and the voice table's carries are equal on every rank; the per-block wall is printed;
   d. timings.
 
 The line before the last is the card's name and power limit; before it, one JSON line
-with each kernel's main-path launches, its launches in phases g, j and k, parity, times and
-bound. The last line is
+with each kernel's main-path launches, its launches in phases g, j, k and l, parity, times
+and bound. The last line is
 {"ok": true, ...}.
 
 --kernels runs phases 1-3 and a only (the kernels against their plain versions, and their
@@ -127,6 +141,8 @@ times) and ends with "kernels: ok" instead. --scene runs phases 1-2 and e-h only
 with "scene: ok". --render runs phases 1 and i only and ends with "render: ok". --files
 runs phases 1-2 and j only (solving the falling scene into a temporary store first) and
 ends with "files: ok". --viewer runs phases 1-2 and k only and ends with "viewer: ok".
+--multichip runs phases 1-2 and l only (solving the box unsharded first) and ends with
+"multichip: ok".
 """
 
 from __future__ import annotations
@@ -615,10 +631,11 @@ def rest_silence(device, blocks=8, frames=512) -> float:
     return peak
 
 
-def sustained_scene(result, device, seed=20261016, n_objects=64, strikes=True):
+def sustained_scene(result, device, seed=20261016, n_objects=64, strikes=True, mesh=None):
     """The sustained main path's scene: 64 instances of the solved box, one strike each, and
     8 sliding contacts between objects (0,1), (2,3), ..., (14,15) resolved by the physics
-    bridge into 16 voices. Returns (synth, voices)."""
+    bridge into 16 voices; the synth object-sharded over `mesh`'s dp axis when one is given.
+    Returns (synth, voices)."""
     from mesheditor_tpu_torch.api import contact_dynamics_for, make_synth
     from mesheditor_tpu_torch.materials import CERAMIC
     from mesheditor_tpu_torch.physics import AudioContactBridge, SustainedContact
@@ -627,6 +644,10 @@ def sustained_scene(result, device, seed=20261016, n_objects=64, strikes=True):
     from mesheditor_tpu_torch.synth import ModalEvent
 
     synth = make_synth([result] * n_objects, sample_rate=48_000.0, device=device)
+    if mesh is not None:
+        from mesheditor_tpu_torch.parallel import shard_synth
+
+        synth = shard_synth(synth, mesh)
     if strikes:
         for o in range(n_objects):
             synth.enqueue(ModalEvent(
@@ -797,12 +818,16 @@ def host_oracle(mesh, n_eig: int, sigma: float, material=None) -> np.ndarray:
     return np.sort(vals)
 
 
-def render_main(result, device, n_objects=64):
-    """bench.py's build_and_render on the port: 64 objects, one strike each, 1 s."""
+def render_main(result, device, n_objects=64, mesh=None):
+    """bench.py's build_and_render on the port: 64 objects, one strike each, 1 s (the synth
+    object-sharded over `mesh`'s dp axis when one is given)."""
     from mesheditor_tpu_torch.api import make_synth
+    from mesheditor_tpu_torch.parallel import shard_synth
     from mesheditor_tpu_torch.synth import ModalEvent
 
     synth = make_synth([result] * n_objects, sample_rate=48_000.0, device=device)
+    if mesh is not None:
+        synth = shard_synth(synth, mesh)
     for o in range(n_objects):
         synth.enqueue(ModalEvent(
             kind="impact", obj=o, expos=o % max(result.modes.shapes.shape[0], 1),
@@ -1339,7 +1364,9 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
 
 
 def cli_phase() -> None:
-    """Phase h: the command line as subprocesses, on the card (its default device)."""
+    """Phase h: the command line as subprocesses, on the card (its default device): warmup
+    --set quickstart (the builds are there already; the torus solved and rendered), then
+    solve, info and render, each with its wall."""
     from mesheditor_tpu_torch.mesh import save_obj, torus_surface
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
@@ -1355,6 +1382,8 @@ def cli_phase() -> None:
                 + " | ".join(proc.stdout.replace("\r", "\n").strip().splitlines()[-4:]))
             return proc.stdout
 
+        out = run("warmup", "--set", "quickstart")
+        assert "warmup done" in out and f"{TORUS_DOFS} dofs" in out, out
         out = run("solve", str(obj), "--material", "Glass", "--modes", "20", "--vertices", "8",
                   "--max-freq", "48000", "--tet-resolution", "14", "--out-dir",
                   str(Path(tmp) / "modal"))
@@ -2430,6 +2459,182 @@ def viewer_phase(device, card: str, size=VIEWER_SIZE, orbits: int = 5,
     return {kind: {"launches": launched[kind], **parity[kind]} for kind in launched}
 
 
+# ---- phase l: the multi-device layer (torch.distributed, one process per rank) ----
+
+MULTICHIP_TOL = {"impact": 2e-5, "coupled": 5e-5}  # x peak: phase 3's and phase a's
+VOICE_CARRIES = ("age", "prev_height", "relief_mean", "penetration", "primed", "active", "obj")
+
+
+def assert_spectra_match(fa, fb, rtol_single=2e-9, rtol_cluster=1e-5, rtol_cluster_mean=2e-9):
+    """tests/test_parallel.py:_assert_spectra_match (that module imports JAX), unchanged:
+    isolated eigenvalues within rtol_single; a near-degenerate cluster (relative gap below
+    rtol_cluster) by its mean within rtol_cluster_mean, each member inside its span."""
+    fa = np.asarray(fa, np.float64)
+    fb = np.asarray(fb, np.float64)
+    assert fa.shape == fb.shape, (fa.shape, fb.shape)
+    n = fa.size
+    scale = np.maximum(np.abs(fa), np.abs(fb)) + 1e-300
+    gaps = np.abs(np.diff(fa)) / np.maximum(scale[1:], 1e-300)
+    edges = np.concatenate([[0], np.where(gaps >= rtol_cluster)[0] + 1, [n]])
+    for s, e in zip(edges[:-1], edges[1:]):
+        if e - s == 1:
+            np.testing.assert_allclose(fb[s], fa[s], rtol=rtol_single)
+        else:
+            ma, mb = fa[s:e].mean(), fb[s:e].mean()
+            assert abs(mb - ma) <= rtol_cluster_mean * max(abs(ma), 1e-300), (
+                f"cluster [{s}:{e}] mean mismatch: {ma!r} vs {mb!r}")
+            width = fa[s:e].max() - fa[s:e].min() + 2 * rtol_cluster * abs(ma)
+            assert np.all(np.abs(fb[s:e] - ma) <= width), (
+                f"cluster [{s}:{e}] member outside span: {fa[s:e]} vs {fb[s:e]}")
+
+
+def multichip_rank(device, result) -> dict:
+    """One rank of phase l: the bench box solved element-sharded over a tp axis of every
+    rank, then the 64-object impact second and the sustained second object-sharded over a dp
+    axis of every rank, each render's kernel launches counted from 0 just before it."""
+    import torch
+    import torch.distributed as dist
+
+    from mesheditor_tpu_torch import mesh2modes
+    from mesheditor_tpu_torch.materials import CERAMIC
+    from mesheditor_tpu_torch.parallel import make_mesh, sharding
+    from mesheditor_tpu_torch.synth import coupled, impact
+
+    world = dist.get_world_size()
+    tp = make_mesh(world, ("tp",), device=device)
+    dp = make_mesh(world, ("dp",), device=device)
+    mesh, cfg, excite = bench_box()
+    sharding.ALL_REDUCES = sharding.ALL_REDUCE_BYTES = sharding.BROADCASTS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, mesh=tp)
+    torch.cuda.synchronize()
+    out = {"rank": dist.get_rank(), "device": str(device), "solve": {
+        "seconds": time.perf_counter() - t0, "report": res.profile.report(),
+        "dofs": res.profile.dofs, "num_modes": res.modes.num_modes,
+        "f1": float(res.modes.freqs[0]) if res.modes.num_modes else 0.0,
+        "iterations": res.profile.restarts, "eigenvalues": res.summary.eigenvalues,
+        "shapes": res.modes.shapes,
+        "all_reduces": sharding.ALL_REDUCES, "all_reduce_bytes": sharding.ALL_REDUCE_BYTES,
+        "broadcasts": sharding.BROADCASTS}}
+
+    impact.LAUNCHES = coupled.LAUNCHES = 0
+    audio = render_main(result, device, mesh=dp)
+    out["impact"] = {"audio": audio, "launches": (impact.LAUNCHES, coupled.LAUNCHES)}
+
+    synth, voices = sustained_scene(result, device, mesh=dp)
+    impact.LAUNCHES = coupled.LAUNCHES = 0
+    sustained, walls = sustained_render(synth, voices)
+    launches = (impact.LAUNCHES, coupled.LAUNCHES)
+    table = synth.voices.to_numpy()
+    out["sustained"] = {"audio": sustained, "launches": launches, "walls": walls,
+                        "voices": len(voices), "objects": (synth.shard.lo, synth.shard.hi),
+                        "carries": {f: table[f] for f in VOICE_CARRIES}}
+    return out
+
+
+def _noop_rank(device):
+    return str(device)
+
+
+def check_multichip(name: str, ranks: list, result, refs: dict, card: str) -> dict:
+    """Hold every rank of one phase-l run to the unsharded card runs: the solve's modes, f1
+    and spectrum, each render's kernel launches (both kernels on every rank) and its mix
+    within the kernel's tolerance of the unsharded mix, the voice table equal on every
+    rank. Prints what it checked; returns {kernel: (launches, max error / peak)}."""
+    stats = {"impact": [0, 0.0], "coupled": [0, 0.0]}
+    for r in ranks:
+        s = r["solve"]
+        assert s["dofs"] == 44_289 and s["num_modes"] == 250, (name, r["rank"], s["dofs"],
+                                                               s["num_modes"])
+        assert abs(s["f1"] - F1_HZ) / F1_HZ < 1e-4, (name, r["rank"], s["f1"])
+        assert_spectra_match(result.summary.eigenvalues, s["eigenvalues"])
+        assert np.array_equal(s["eigenvalues"], ranks[0]["solve"]["eigenvalues"]), \
+            f"{name}: rank {r['rank']}'s eigenvalues differ from rank 0's"
+        shape_diff = float(np.abs(s["shapes"] - ranks[0]["solve"]["shapes"]).max())
+        log(f"[multichip] {name} rank {r['rank']} ({r['device']}) solve {s['seconds']:.2f} s, "
+            f"{s['iterations']} iterations, {s['num_modes']} modes, f1 {s['f1']:.4f} Hz, "
+            f"spectrum in the band of the unsharded solve; {s['all_reduces']} all_reduces "
+            f"({s['all_reduce_bytes'] / 1e9:.3f} GB from this rank), {s['broadcasts']} "
+            f"broadcasts; mode shapes off rank 0's by {shape_diff:.3e}; {s['report']} ({card})")
+        for kernel, key, launched in (("impact", "impact", 0), ("coupled", "sustained", 1)):
+            got = np.asarray(r[key]["audio"], np.float64)
+            want = np.asarray(refs[key], np.float64)
+            peak = float(np.abs(want).max())
+            err = float(np.abs(got - want).max()) / peak
+            launches = r[key]["launches"][launched]
+            assert got.shape == want.shape and np.isfinite(got).all(), (name, key)
+            assert launches > 0, f"{name}: rank {r['rank']} launched no {kernel} kernel"
+            assert err < MULTICHIP_TOL[kernel], \
+                f"{name}: rank {r['rank']} {key} off the unsharded render by {err:.3e} x peak"
+            stats[kernel][0] += launches
+            stats[kernel][1] = max(stats[kernel][1], err)
+        sus = r["sustained"]
+        assert sus["launches"] == (0, 94), (name, r["rank"], sus["launches"])
+        for f in VOICE_CARRIES:
+            assert np.array_equal(sus["carries"][f], ranks[0]["sustained"]["carries"][f]), \
+                f"{name}: rank {r['rank']}'s voice {f} differs from rank 0's"
+        walls = sus["walls"]
+        log(f"[multichip] {name} rank {r['rank']} objects {sus['objects']}: impact second "
+            f"launches {r['impact']['launches']}; sustained second {sus['voices']} voices, "
+            f"launches {sus['launches']}, per-block wall median {np.median(walls):.3f} ms, "
+            f"largest {np.max(walls):.3f} ms against the {BLOCK_DEADLINE_MS:.3f} ms deadline; "
+            f"voice table equal on every rank ({card})")
+    log(f"[multichip] {name}: impact {stats['impact'][1]:.3e} x peak, coupled "
+        f"{stats['coupled'][1]:.3e} x peak off the unsharded card renders")
+    return stats
+
+
+def multichip_phase(device, card: str, result=None) -> dict:
+    """Phase l: the multi-device layer on the card(s). l1: a mesh of every card under NCCL
+    (one rank a card; on a one-card machine a one-rank mesh that still makes every NCCL
+    call). l2: two ranks sharing cuda:0 under gloo (real cross-rank sums): the dry run, then
+    the bench box at tp = 2 and the two renders at dp = 2. Both are held to the unsharded
+    solve `result` (phase 5's; solved here when None) and to its unsharded card renders.
+    Returns {kernel: (launches, max error / peak)} over both."""
+    import torch
+
+    from mesheditor_tpu_torch import mesh2modes
+    from mesheditor_tpu_torch.materials import CERAMIC
+    from mesheditor_tpu_torch.parallel.dryrun import dryrun_multichip
+    from mesheditor_tpu_torch.parallel.launch import spawn
+
+    n_cards = torch.cuda.device_count()
+    try:
+        spawn(_noop_rank, n_cards + 1, device=device, backend="nccl")
+    except ValueError as ex:
+        log(f"[multichip] NCCL with {n_cards + 1} ranks on {n_cards} cards refused: {ex}")
+    else:
+        raise AssertionError("NCCL with more ranks than cards was not refused")
+
+    if result is None:
+        mesh, cfg, excite = bench_box()
+        result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
+    synth, voices = sustained_scene(result, device)
+    refs = {"impact": render_main(result, device),
+            "sustained": sustained_render(synth, voices)[0]}
+
+    t0 = time.perf_counter()
+    l1 = spawn(multichip_rank, n_cards, device=device, backend="nccl", args=(result,))
+    log(f"[multichip] l1: {n_cards} rank(s) under NCCL in {time.perf_counter() - t0:.1f} s")
+    stats = check_multichip("l1 nccl", l1, result, refs, card)
+
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, device=device, backend="gloo")
+    assert all(np.isfinite(r["out"]).all() and r["coupled_launches"] == 1 for r in dry), \
+        [(r["coupled_launches"], r["rms"]) for r in dry]
+    log(f"[multichip] l2 dry run, 2 ranks on cuda:0 under gloo, in "
+        f"{time.perf_counter() - t0:.1f} s; coupled launches "
+        f"{[r['coupled_launches'] for r in dry]}")
+    t0 = time.perf_counter()
+    l2 = spawn(multichip_rank, 2, device=device, backend="gloo", args=(result,))
+    log(f"[multichip] l2: 2 ranks on cuda:0 under gloo in {time.perf_counter() - t0:.1f} s")
+    for kernel, (launches, err) in check_multichip("l2 gloo", l2, result, refs, card).items():
+        stats[kernel][0] += launches
+        stats[kernel][1] = max(stats[kernel][1], err)
+    return stats
+
+
 def run(stack: contextlib.ExitStack) -> int:
     """The phases, as the command line picks them; temporary directories that outlive a
     phase are entered on `stack`."""
@@ -2449,6 +2654,9 @@ def run(stack: contextlib.ExitStack) -> int:
     only.add_argument("--viewer", action="store_true",
                       help="only the build and the viewer phase (the edit command's frames, "
                            "picks, gizmo and strike, in process and as a server)")
+    only.add_argument("--multichip", action="store_true",
+                      help="only the build and the multi-device phase (NCCL over every "
+                           "card, then two ranks sharing a card under gloo)")
     args = parser.parse_args()
     try:
         import torch
@@ -2505,6 +2713,10 @@ def run(stack: contextlib.ExitStack) -> int:
     if args.viewer:
         viewer_phase(device, card)
         log("viewer: ok")
+        return 0
+    if args.multichip:
+        multichip_phase(device, card)
+        log("multichip: ok")
         return 0
 
     # 3. kernel vs plain on the card
@@ -2636,8 +2848,9 @@ def run(stack: contextlib.ExitStack) -> int:
     cli_phase()
 
     # (i) the render layer: no kernel of its own, and it launches neither resonator kernel
+    # (timed 3 times a chunk here, 5 with --render, to keep the whole run in its time)
     impact.LAUNCHES = coupled.LAUNCHES = 0
-    render_phase(device, card)
+    render_phase(device, card, timing_reps=3)
     assert impact.LAUNCHES == coupled.LAUNCHES == 0, "the render launched a resonator kernel"
 
     # (j) files: glTF in and out, the commands on a .glb, sessions, RealImpact (the counts
@@ -2648,6 +2861,10 @@ def run(stack: contextlib.ExitStack) -> int:
     # (k) the viewer: the edit command's repaint, picks, gizmo and strike (the counts are
     # set to 0 just before the strike and read just after it)
     viewer_kernels = viewer_phase(device, card)
+
+    # (l) the multi-device layer: the counts are set to 0 in every rank just before each
+    # sharded render and read just after it
+    multichip = multichip_phase(device, card, result)
 
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
@@ -2669,6 +2886,8 @@ def run(stack: contextlib.ExitStack) -> int:
         "viewer_max_rel_err": viewer_kernels["impact"]["max_rel_err"],
         "scene_max_abs_err": scene_kernels["impact"]["max_abs_err"],
         "scene_max_rel_err": scene_kernels["impact"]["max_rel_err"],
+        "multichip_launches": multichip["impact"][0],
+        "multichip_max_rel_err": multichip["impact"][1],
         "max_abs_err": bench_stats["max_abs_err"],
         "ms": bench_stats["ms"], "plain_ms": bench_stats["plain_ms"],
         "bound_ms": imp_bound, "bound_by": imp_by, "library_ms": None,
@@ -2684,6 +2903,8 @@ def run(stack: contextlib.ExitStack) -> int:
         "viewer_launches": viewer_kernels["coupled"]["launches"],
         "scene_max_abs_err": scene_kernels["coupled"]["max_abs_err"],
         "scene_max_rel_err": scene_kernels["coupled"]["max_rel_err"],
+        "multichip_launches": multichip["coupled"][0],
+        "multichip_max_rel_err": multichip["coupled"][1],
         "max_abs_err": c512["max_abs_err"],
         "ms": c512["ms"], "plain_ms": c512["plain_ms"],
         "bound_ms": c512["bound_ms"], "bound_by": c512["bound_by"], "library_ms": None,

@@ -5,9 +5,10 @@ The headless analog of the reference's CLI (main.cpp:1387-1433 — --headless/--
 --screenshot modes): solve meshes to modal models, render strikes to wav, inspect models,
 simulate a glTF scene to audio (and video), screenshot and record a mesh or a glTF scene,
 and list or restore crash-recovery sessions, without an interactive session; `edit` serves
-the interactive viewer/editor to a browser. `--device` names where the solves and the
+the interactive viewer/editor to a browser, and `warmup` builds what the port builds at
+first use and runs the standard shapes once. `--device` names where the solves and the
 renders run ("cuda" by default; "cpu" runs the plain PyTorch path on the host). The
-reference package's `bench` and `warmup` are not ported.
+reference package's `bench` is not ported: it belongs with the port's benchmark.
 """
 
 from __future__ import annotations
@@ -257,6 +258,82 @@ def cmd_edit(args):
     serve(app, port=args.port)
 
 
+def cmd_warmup(args):
+    """Build the kernel library (on the card) and the tet mesher into build/, where every
+    later process loads them instead of compiling, then run the chosen shape set once: the
+    first process's start-up, paid here (reference: cmd_warmup, which primes the XLA compile
+    cache instead)."""
+    import time
+
+    from . import _build
+    from ._device import resolve_device
+
+    device = resolve_device(args.device)
+    t_all = time.perf_counter()
+    jobs = [("tet mesher", _build.load_tetmesher)]
+    if device.type == "cuda":  # a CPU run never loads the kernels
+        jobs.insert(0, ("kernel library", _build.load_kernels))
+    if args.set in ("quickstart", "all"):
+        jobs.append(("quickstart torus solve + render", lambda: _warm_quickstart(device)))
+    if args.set in ("bench", "all"):
+        jobs.append(("bench box solve + 64-object render", lambda: _warm_bench(device)))
+    for name, fn in jobs:
+        t0 = time.perf_counter()
+        print(f"warming {name}...", flush=True)
+        fn()
+        print(f"  {name}: {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"warmup done in {time.perf_counter() - t_all:.1f}s on {device}")
+
+
+def _warm_quickstart(device):
+    import numpy as np
+
+    from .api import make_synth, solve_surface, strike
+    from .materials import CERAMIC
+    from .mesh import torus_surface
+    from .types import ModalSolveSettings
+
+    pts, tris = torus_surface(0.06, 0.025)
+    res = solve_surface(pts, tris, CERAMIC.properties,
+                        settings=ModalSolveSettings(num_modes=30), device=device)
+    synth = make_synth([res], device=device)
+    strike(synth, 0, 0, res, direction=(0, 1, 0), impulse_mag=0.05)
+    audio = synth.render_seconds(1.0)
+    if not np.isfinite(audio).all():
+        raise RuntimeError("the quickstart render is not finite")
+    print(f"  {res.modes.num_modes} modes, f1 {res.modes.freqs[0]:.1f} Hz, "
+          f"{res.profile.dofs} dofs")
+
+
+def _warm_bench(device):
+    """bench.py:57-77's shapes: the 9,720-tet box to 256 modes, then 64 strikes rendered
+    for 1 s in 512-sample blocks."""
+    import numpy as np
+
+    from . import SolverConfig, mesh2modes
+    from .api import make_synth
+    from .materials import CERAMIC
+    from .mesh import box_tets
+    from .synth import ModalEvent
+
+    mesh = box_tets((0.3, 0.16, 0.15), (18, 10, 9))
+    cfg = SolverConfig(num_modes=256, num_fem_modes=256, max_mode_freq=48_000.0,
+                       tolerance=1e-6)
+    excite = mesh.points[:: max(mesh.points.shape[0] // 10, 1)][:10]
+    result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
+    synth = make_synth([result] * 64, sample_rate=48_000.0, device=device)
+    for o in range(64):
+        synth.enqueue(ModalEvent(kind="impact", obj=o,
+                                 expos=o % max(result.modes.shapes.shape[0], 1),
+                                 j=(0.05, 0.02, 0.01), pulse_step=1.0 / 150.0,
+                                 pulse_gamma=np.pi / 2 / 150.0, accel_amp=0.001))
+    audio = synth.render_seconds(1.0, 512)
+    if not np.isfinite(audio).all():
+        raise RuntimeError("the bench render is not finite")
+    print(f"  {result.modes.num_modes} modes, f1 {result.modes.freqs[0]:.1f} Hz, "
+          f"{result.profile.dofs} dofs")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mesheditor_tpu_torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -336,6 +413,13 @@ def main(argv=None):
                    help="overlay collider wireframes (glTF scenes)")
     v.add_argument("--device", default="cuda")
     v.set_defaults(fn=cmd_view)
+
+    wu = sub.add_parser("warmup", help="build the kernels and the mesher, run standard "
+                                       "shapes once")
+    wu.add_argument("--set", default="quickstart", choices=["quickstart", "bench", "all"],
+                    help="which shape set to run (default: quickstart)")
+    wu.add_argument("--device", default="cuda")
+    wu.set_defaults(fn=cmd_warmup)
 
     ed = sub.add_parser("edit", help="interactive browser viewer/editor")
     ed.add_argument("scene", nargs="?", default=None, help="glTF/.project to open")

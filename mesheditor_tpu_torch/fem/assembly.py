@@ -16,6 +16,11 @@ split-K apply, macro-element clustering) answer nothing Hopper needs: it has nat
 Reproducibility: index_add_ on a CUDA tensor accumulates with atomics, so the order of the
 per-dof sums (and their last bits, ~1e-16 relative) differs from run to run. Nothing in the
 solve depends on bit-reproducibility; results are compared by tolerance.
+
+Element sharding (parallel/sharding.py:shard_element_ops): an operator whose `tp` is set
+holds one contiguous slice of the elements of a tensor-parallel group. Every element sum
+(the applies, the diagonals) is then this rank's partial, summed over the group by one
+all_reduce before the diagonal fixes are added, which every rank holds whole.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..types import AcousticMaterialProperties
 from .quad_basis import quad_basis
 from .quad_mesh import QuadMesh
@@ -75,6 +81,12 @@ def _add_fix(y: torch.Tensor, x: torch.Tensor, fix: torch.Tensor) -> torch.Tenso
     return y + (fix[:, None] * x if x.dim() > 1 else fix * x)
 
 
+def _total(y: torch.Tensor, tp) -> torch.Tensor:
+    """The element sum `y` over a tensor-parallel group (this rank's partial when `tp` is
+    set; already whole when it is None)."""
+    return y if tp is None else tp.sum(y)
+
+
 @dataclass(frozen=True)
 class ElementOperators:
     """Matrix-free pencil (K, M) in element form, float64 on one device.
@@ -84,6 +96,8 @@ class ElementOperators:
     rho_vol:    (E,) density * element volume
     m_unit:     (30, 30) kron(mass_tab, I3), shared by every element
     k_fix/m_fix: (n_dofs,) diagonal parking for dofs no element touches (see _orphan_fixes)
+    tp: None, or this rank's ElementSlice of a tensor-parallel group (parallel/sharding.py):
+        the element arrays are then the slice, k_fix/m_fix and n_dofs stay whole
     """
 
     elem_nodes: torch.Tensor
@@ -93,6 +107,7 @@ class ElementOperators:
     k_fix: torch.Tensor
     m_fix: torch.Tensor
     n_dofs: int
+    tp: object = None
 
     @property
     def device(self) -> torch.device:
@@ -105,18 +120,28 @@ class ElementOperators:
         return (3 * self.elem_nodes[:, :, None] + comp).reshape(-1, 30)
 
     def kmat(self, x: torch.Tensor) -> torch.Tensor:
-        return _add_fix(_apply_node(self.elem_nodes, self.k_blocks, x, self.n_dofs), x, self.k_fix)
+        y = _apply_node(self.elem_nodes, self.k_blocks, x, self.n_dofs)
+        return _add_fix(_total(y, self.tp), x, self.k_fix)
 
     def mmat(self, x: torch.Tensor) -> torch.Tensor:
         y = _apply_node(self.elem_nodes, (self.rho_vol, self.m_unit), x, self.n_dofs)
-        return _add_fix(y, x, self.m_fix)
+        return _add_fix(_total(y, self.tp), x, self.m_fix)
 
     def shifted(self, sigma: float) -> "ShiftedElementOperator":
         """A = K - sigma*M baked into one block array (the role of the reference's
         bake_shifted_f32, in float64 and element form only)."""
         a = self.k_blocks - sigma * (self.rho_vol[:, None, None] * self.m_unit[None])
         return ShiftedElementOperator(self.elem_nodes, a, self.k_fix - sigma * self.m_fix,
-                                      self.n_dofs)
+                                      self.n_dofs, self.tp)
+
+    def whole(self) -> "ElementOperators":
+        """Every element of the pencil on this rank: self when unsharded, else the group's
+        slices gathered (an exact zero-padded sum)."""
+        if self.tp is None:
+            return self
+        return ElementOperators(self.tp.gather(self.elem_nodes), self.tp.gather(self.k_blocks),
+                                self.tp.gather(self.rho_vol), self.m_unit, self.k_fix,
+                                self.m_fix, self.n_dofs)
 
 
 @dataclass(frozen=True)
@@ -127,9 +152,11 @@ class ShiftedElementOperator:
     a_blocks: torch.Tensor
     a_fix: torch.Tensor
     n_dofs: int
+    tp: object = None
 
     def amat(self, x: torch.Tensor) -> torch.Tensor:
-        return _add_fix(_apply_node(self.elem_nodes, self.a_blocks, x, self.n_dofs), x, self.a_fix)
+        y = _apply_node(self.elem_nodes, self.a_blocks, x, self.n_dofs)
+        return _add_fix(_total(y, self.tp), x, self.a_fix)
 
 
 def _build_k_blocks_host(points, tets, grad_tab, lam, mu):
@@ -192,11 +219,11 @@ def assemble_element_matrices(
     tets: np.ndarray,
     material: AcousticMaterialProperties,
     quad: QuadMesh,
-    device="cpu",
+    device="cuda",
 ) -> ElementOperators:
     """Build the element-form pencil operators for a (filtered) tet mesh on `device`.
     The element blocks are formed on the host in numpy (one vectorized pass) and uploaded."""
-    device = torch.device(device)
+    device = resolve_device(device)
     mass_tab, grad_tab = quad_basis()
     n_dofs = 3 * quad.node_count
     k_blocks, volume = _build_k_blocks_host(
@@ -219,4 +246,4 @@ def pencil_diagonals(ops: ElementOperators):
     m_diag = _scatter_diag(ops.elem_nodes,
                            ops.rho_vol[:, None] * torch.diagonal(ops.m_unit)[None, :],
                            ops.n_dofs)
-    return k_diag + ops.k_fix, m_diag + ops.m_fix
+    return _total(k_diag, ops.tp) + ops.k_fix, _total(m_diag, ops.tp) + ops.m_fix

@@ -26,12 +26,19 @@ import torch
 
 
 def _restrict(w: torch.Tensor, agg: torch.Tensor, nagg: int, x: torch.Tensor) -> torch.Tensor:
-    """P^T x: coarse coordinates of an (n_dofs, p) panel, one (6p)-wide row per node."""
+    """P^T x: coarse coordinates of an (n_dofs, p) panel, one (6p)-wide row per node.
+
+    Each aggregate's rows are summed in node order by a segmented sum, so equal inputs give
+    equal bits on every run and every rank (index_add_ on the card adds in no fixed order).
+    The element-sharded solve needs that: its replicated panels must stay bit-equal across
+    ranks, or the ranks' partial applies would act on different panels."""
     nn = w.shape[0]
     p = x.shape[1]
-    xn = torch.einsum("nck,ncp->nkp", w, x.reshape(nn, 3, p))
-    rc = torch.zeros(nagg, 6 * p, dtype=x.dtype, device=x.device)
-    rc.index_add_(0, agg, xn.reshape(nn, 6 * p))
+    xn = torch.einsum("nck,ncp->nkp", w, x.reshape(nn, 3, p)).reshape(nn, 6 * p)
+    order = torch.argsort(agg, stable=True)
+    lengths = torch.bincount(agg, minlength=nagg)
+    rc = torch.segment_reduce(xn.index_select(0, order), "sum", lengths=lengths, axis=0,
+                              unsafe=True)
     return rc.reshape(nagg * 6, p)
 
 
@@ -262,7 +269,8 @@ _AC_CHUNK = 2048
 
 
 def _coarse_assemble_pencil(ops, w: torch.Tensor, agg: torch.Tensor, nagg: int):
-    """Galerkin coarse pencil (Kc, Mc) = (P^T K P, P^T M P), float64 on the device.
+    """Galerkin coarse pencil (Kc, Mc) = (P^T K P, P^T M P), float64 on the device (summed
+    over a tensor-parallel group when `ops` holds one slice of the elements).
 
     Per element, P_e is block-diagonal over its 10 nodes (node i's (3, 6) block w[node_i]
     in rows 3i.., columns 6i..), so P_e^T B_e P_e is a (10, 10) grid of 6x6 blocks; block
@@ -286,6 +294,8 @@ def _coarse_assemble_pencil(ops, w: torch.Tensor, agg: torch.Tensor, nagg: int):
         ag = agg.index_select(0, en_c.reshape(-1)).reshape(ch, 10)
         ids = (ag[:, :, None] * nagg + ag[:, None, :]).reshape(-1)
         acc.index_add_(0, ids, t.reshape(ch * 100, 72))
+    if ops.tp is not None:  # this rank's elements only: sum the group's partials
+        acc = ops.tp.sum(acc)
     acc = acc.reshape(nagg, nagg, 2, 6, 6).permute(2, 0, 3, 1, 4).reshape(2, 6 * nagg, 6 * nagg)
     return acc[0], acc[1]
 
@@ -372,7 +382,12 @@ def build_amg(
     omega: float = 0.0,
     sa="auto",
 ) -> AmgPrecond:
-    """Build the two-level preconditioner for this solve's pencil on `ops.device`."""
+    """Build the two-level preconditioner for this solve's pencil on `ops.device`.
+
+    On element-sharded `ops` every rank builds the whole preconditioner: the host structure
+    from the whole mesh, the coarse pencil and the smoother's operator summed over the
+    group, so the power iteration's radius (a host value) has the same bits on every rank.
+    """
     dev = ops.device
     f64 = dict(dtype=torch.float64, device=dev)
     n_nodes = quad.node_count
@@ -407,7 +422,7 @@ def build_amg(
     # plain aggregation (conforming-Delaunay meshes, p90/p10 ~ 2+), and costs two extra
     # A-applies per coarse correction on structured grids (~1.0).
     if sa == "auto":
-        vols = ops.rho_vol.cpu().numpy()
+        vols = (ops.rho_vol if ops.tp is None else ops.tp.gather(ops.rho_vol)).cpu().numpy()
         live = vols[vols > 0]
         hetero = (float(np.percentile(live, 90)) / max(float(np.percentile(live, 10)), 1e-30)
                   if live.size else 1.0)

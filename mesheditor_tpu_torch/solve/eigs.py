@@ -125,7 +125,7 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
     Returns ((lam (nev,), x (n, nev), res_norm (nev,)), status, iterations, op_count)
     with status "done", or (None, status, ...) with status in {"cancel", "nan", "noconv"}.
     """
-    from .lobpcg import _settled_prefix
+    from .lobpcg import _cancelled, _settled_prefix
 
     p = x_seed.shape[1]
     x = x_seed
@@ -163,6 +163,11 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
             blocks.append(_chol_qr_m(pdir, kp, mp))
         s, ks, ms = (torch.cat(t, 1) for t in zip(*blocks))
         theta, c = _rayleigh_ritz(s.T @ ks, s.T @ ms, p)
+        if ops.tp is not None:
+            # Every rank makes the host decisions below (settled, locked, done) from the
+            # group's first rank's values, so none can leave the loop while another waits
+            # in a collective, whatever the last bits of its own panels.
+            theta = ops.tp.agree(theta)
 
         lam = theta.cpu().numpy()
         if not np.isfinite(lam[:nev]).all():
@@ -170,7 +175,7 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
         settled, _rel, _delta, _window = _settled_prefix(lam, prev, nev, tol, sigma,
                                                          floor_rel)
         prev = lam
-        if callback is not None and callback(it, settled):
+        if _cancelled(ops, callback, it, settled):
             return None, "cancel", it, ops_count
         streak = streak + 1 if settled >= nev else 0
         if streak >= 2:

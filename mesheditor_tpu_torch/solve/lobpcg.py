@@ -12,6 +12,12 @@ Two ways to an answer, chosen as the reference chooses them:
 
 Which path answered is never silent: DEVICE_SOLVES and HOST_SOLVES count the solves each
 path answered in this process.
+
+On an element-sharded pencil (`ops.tp` set) every rank of the group runs the same calls.
+The host path then solves the gathered whole pencil and every rank takes the answer of the
+group's first rank; the device path takes its eigenvalue estimates, and with them every
+host decision (settled count, locking, convergence, NaN), from that rank too, and agrees on
+cancellation (eigs.py). So no rank can leave a collective that another still waits in.
 """
 
 from __future__ import annotations
@@ -68,20 +74,31 @@ def _small_pencil_path(ops, nev: int, p: int, sigma: float, callback) -> LobpcgR
     import scipy.sparse.linalg as spla
 
     n = ops.n_dofs
-    k, m = _pencil_csr(ops)
+    k, m = _pencil_csr(ops.whole())
     p = min(p, n - 1)
     try:
         vals, vecs = spla.eigsh(k, k=p, M=m, sigma=sigma, which="LM")
     except (RuntimeError, ValueError, spla.ArpackError):
-        return _empty(n, ops.device, 0, 1)
+        vals, vecs = np.zeros(0), np.zeros((n, 0))
     order = np.argsort(vals)
     vals = vals[order][:nev]
-    vecs = vecs[:, order][:, :nev]
-    if callback is not None and callback(1, nev):
+    vecs = torch.as_tensor(vecs[:, order][:, :nev], device=ops.device)
+    if ops.tp is not None:  # ARPACK's start differs between processes: take the first rank's
+        vals = ops.tp.agree(torch.as_tensor(vals, device=ops.device)).cpu().numpy()
+        vecs = ops.tp.agree(vecs)
+    if vals.size == 0:
+        return _empty(n, ops.device, 0, 1)
+    if _cancelled(ops, callback, 1, nev):
         return _empty(n, ops.device, 1, 1)
     HOST_SOLVES += 1
-    return LobpcgResult(vals.copy(), torch.as_tensor(vecs, device=ops.device), 1, 1,
-                        residual_norms=np.zeros(nev))
+    return LobpcgResult(vals.copy(), vecs, 1, 1, residual_norms=np.zeros(nev))
+
+
+def _cancelled(ops, callback, iteration: int, settled: int) -> bool:
+    """callback(iteration, settled) asks for cancellation; on a sharded pencil the group
+    cancels when any rank asks."""
+    ask = callback is not None and bool(callback(iteration, settled))
+    return ask if ops.tp is None else ops.tp.any(ask)
 
 
 def _settled_prefix(lam, prev, nev, tol, sigma, floor_rel, cluster_rel=1e-4):

@@ -100,16 +100,28 @@ def mesh2modes(
     cancelled: Optional[Callable[[], bool]] = None,
     progress: Optional[Callable[[float], None]] = None,
     verbose: Optional[bool] = None,
-    device="cuda",
+    device=None,
+    mesh=None,
 ) -> ModalResult:
-    """FEM modal analysis over quadratic (10-node) tetrahedral elements on `device`.
+    """FEM modal analysis over quadratic (10-node) tetrahedral elements on `device` (the
+    card when neither `device` nor `mesh` names one).
 
     `cancelled` (optional) is polled between stages and eigensolver iterations; a cancelled
     solve returns an empty result (the reference's JobMonitor contract, mesh2modes.h:75-77).
     `verbose` (default: the MESHEDITOR_TPU_VERBOSE env var) prints the per-stage wall-time
     report on completion.
+
+    `mesh` (optional, parallel.make_mesh, with a "tp" axis) runs the same solve with the
+    elements sharded over the rank's tp group, on the mesh's device: every rank of the
+    group calls this with the same arguments, applies its slice of the elements and sums
+    the partials by all_reduce (the reference's reduction points,
+    src/audio/mesh2modes.cpp:379-398), and every rank returns the same eigenvalues.
     """
-    device = resolve_device(device)
+    if mesh is not None:
+        if device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device!r} is not the mesh's device {mesh.device}")
+        device = mesh.device
+    device = resolve_device("cuda" if device is None else device)
     if verbose is None:
         verbose = bool(os.environ.get("MESHEDITOR_TPU_VERBOSE"))
     profile = SolveProfile()
@@ -133,6 +145,10 @@ def mesh2modes(
 
     t0 = time.perf_counter()
     ops = assemble_element_matrices(tets.points, kept, material, quad, device=device)
+    if mesh is not None:
+        from ..parallel.sharding import shard_element_ops
+
+        ops = shard_element_ops(ops, mesh)
     synchronize(device)
     profile.assemble = time.perf_counter() - t0
     profile.dofs = ops.n_dofs
@@ -165,6 +181,8 @@ def mesh2modes(
         except (torch.linalg.LinAlgError, np.linalg.LinAlgError) as ex:
             # lobpcg_pencil then answers on the host (counted in HOST_SOLVES).
             warnings.warn(f"AMG build failed ({ex}); the eigensolve falls back to the host")
+        if ops.tp is not None and ops.tp.any(precond is None):
+            precond = None  # the group takes the host path together
     synchronize(device)
     profile.factorize = time.perf_counter() - t0
 

@@ -19,6 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..types import ModalModes
 from .tracks import TRACK_SAMPLES
 
@@ -171,7 +172,7 @@ class TrackPool:
     sums: torch.Tensor  # (T, N + 1) f32 running integrals
 
     @staticmethod
-    def empty(slots: int = 64, samples: int = TRACK_SAMPLES, device="cpu") -> "TrackPool":
+    def empty(slots: int, samples: int, device) -> "TrackPool":
         return TrackPool(
             heights=torch.zeros(slots, samples, dtype=torch.float32, device=device),
             sums=torch.zeros(slots, samples + 1, dtype=torch.float32, device=device),
@@ -263,7 +264,7 @@ def build_bank(
     sample_rate: float = 48_000.0,
     mode_pad: int = 8,
     point_pad: int = 1,
-    device="cpu",
+    device="cuda",
 ) -> tuple[BankParams, BankState]:
     """Pack a list of modal models into the padded (O, K) bank on `device`. K pads to a
     multiple of `mode_pad`; P to the max sample-point count.
@@ -271,6 +272,7 @@ def build_bank(
     Identical models are deduplicated by a content fingerprint (scenes instance one solved
     model across many entities): unique models are packed and uploaded once, and the
     per-object bank expands by an index_select along the object axis on the device."""
+    device = resolve_device(device)
     n_obj = len(modes_list)
     max_k = _round_up(max((m.num_modes for m in modes_list), default=1) or 1, mode_pad)
     max_p = _round_up(max((m.shapes.shape[0] for m in modes_list), default=1) or 1, point_pad)

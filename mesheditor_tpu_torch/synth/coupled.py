@@ -226,17 +226,22 @@ def resonate_coupled(coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro
 def coupled_inputs(params: BankParams, state: BankState, impacts: ImpactTable,
                    voices: VoiceTable, pool: TrackPool, num_samples: int,
                    click_gain: float = 1.0, sustain_level: float = 1.0,
-                   coupling: float = 1.0, n_slots: int = 4, n_per_obj: int | None = None):
+                   coupling: float = 1.0, n_slots: int = 4, n_per_obj: int | None = None,
+                   shard=None):
     """The block precompute of the coupled render: the arguments of `resonate_coupled`,
     the voice precompute and the impact click. `n_slots` bounds the live impacts per object
     and `n_per_obj` the live voices per object (more are dropped; None counts them from the
-    table). Returns (args, voice_block, click)."""
+    table). With `shard` the bank is this rank's block of objects and the tables the whole
+    replicated ones: the kernel's arguments hold this rank's impacts and voices, the click
+    all impacts. Returns (args, voice_block, click)."""
     n_obj = params.coeff_re.shape[0]
+    force, prev_force = _impact_force_curves(impacts, num_samples)
+    click = impact_click(impacts, force, prev_force, click_gain)
+    if shard is not None:
+        impacts, voices = shard.local_impacts(impacts), shard.local_voices(voices)
     live = voices.active & (voices.obj >= 0) & (voices.obj < n_obj)
     if n_per_obj is None:  # a device sync on a CUDA table
         n_per_obj = int(torch.bincount(voices.obj[live].long(), minlength=1).max())
-    force, prev_force = _impact_force_curves(impacts, num_samples)
-    click = impact_click(impacts, force, prev_force, click_gain)
     gain_rok, force_sro = _regroup(impacts, impact_gain_rows(params, impacts), force, n_obj,
                                    n_slots)
 
@@ -263,12 +268,16 @@ def render_block_coupled(params: BankParams, state: BankState, impacts: ImpactTa
                          voices: VoiceTable, pool: TrackPool, num_samples: int,
                          click_gain: float = 1.0, sustain_level: float = 1.0,
                          coupling: float = 1.0, n_slots: int = 4,
-                         n_per_obj: int | None = None):
-    """Coupled block render (arguments as `coupled_inputs`).
-    Returns (state, impacts, voices, out (num_samples,) float32)."""
+                         n_per_obj: int | None = None, shard=None):
+    """Coupled block render (arguments as `coupled_inputs`). With `shard` the mix is summed
+    over the group before the click is added, and each voice's carries come from the rank
+    that owns its object. Returns (state, impacts, voices, out (num_samples,) float32)."""
     args, vb, click = coupled_inputs(params, state, impacts, voices, pool, num_samples,
-                                     click_gain, sustain_level, coupling, n_slots, n_per_obj)
+                                     click_gain, sustain_level, coupling, n_slots, n_per_obj,
+                                     shard)
     mix, z_re, z_im, rm_out, pen_out = resonate_coupled(*args)
+    if shard is not None:
+        mix = shard.sum(mix)
     state, impacts, voices = finish_block(params, impacts, z_re, z_im, num_samples, voices,
-                                          vb, rm_out, pen_out)
+                                          vb, rm_out, pen_out, shard)
     return state, impacts, voices, mix + click

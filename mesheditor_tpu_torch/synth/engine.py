@@ -21,6 +21,11 @@ There is no other route and no fallback.
 Determinism: given the same events, publishes and block sizes the output is bit-identical;
 cutting a stretch into other block sizes leaves the carried state and the samples
 bit-identical.
+
+Object sharding (parallel/sharding.py:shard_synth): `shard` is then this rank's block of
+the objects. The bank holds that block only; the tables and this host side stay whole and
+replicated, every rank making the same calls, and objects are named by their global index
+throughout.
 """
 
 from __future__ import annotations
@@ -104,6 +109,8 @@ class ModalSynth:
         self.device = resolve_device(device)
         self.params, self.state = build_bank(modes_list, gains, sample_rate,
                                              device=self.device)
+        self.n_objects = len(modes_list)  # every object, on every rank of a sharded synth
+        self.shard = None  # parallel/sharding.py:ObjectBlock once shard_synth has run
         self.sample_rate = float(sample_rate)
         self.max_impacts = max_impacts
         self.max_voices = max_voices
@@ -264,7 +271,7 @@ class ModalSynth:
                 dirty = True
         if reporting and published:
             for voice in published:
-                if voice.obj >= self.params.coeff_re.shape[0]:
+                if voice.obj >= self.n_objects:
                     continue
                 if voice.voice_id in self._voice_ids:
                     row = self._voice_ids[voice.voice_id]
@@ -287,7 +294,7 @@ class ModalSynth:
         upload each field once."""
         if not self._pending_events:
             return
-        n_obj = self.params.coeff_re.shape[0]
+        n_obj = self.n_objects
         n_points = self.params.shapes.shape[1]
         host = self.impacts.to_numpy()
         silenced: list[int] = []
@@ -325,11 +332,16 @@ class ModalSynth:
             np.bincount(host["obj"][live]).max() if live.any() else 0
         )
         self.impacts = ImpactTable.from_numpy(host, self.device)
-        if silenced:
-            mask = np.ones(n_obj, np.float32)
-            mask[silenced] = 0.0
+        rows = [r for r in map(self._row, silenced) if r is not None]
+        if rows:
+            mask = np.ones(self.params.coeff_re.shape[0], np.float32)
+            mask[rows] = 0.0
             m = torch.as_tensor(mask, device=self.device)[:, None]
             self.state = BankState(z_re=self.state.z_re * m, z_im=self.state.z_im * m)
+
+    def _row(self, obj: int):
+        """The bank row of object `obj`, or None when another rank's bank holds it."""
+        return obj if self.shard is None else self.shard.local(obj)
 
     # ---- block render ----
 
@@ -345,12 +357,12 @@ class ModalSynth:
             self.state, self.impacts, self.voices, out = render_block_coupled(
                 self.params, self.state, self.impacts, self.voices, self.pool, num_samples,
                 self.click_gain, self.sustain_level, self.coupling,
-                self._max_impacts_per_object, per_obj,
+                self._max_impacts_per_object, per_obj, self.shard,
             )
         else:
             self.state, self.impacts, out = render_block_impacts(
                 self.params, self.state, self.impacts, num_samples, self.click_gain,
-                self._max_impacts_per_object,
+                self._max_impacts_per_object, self.shard,
             )
         self._idle_samples += num_samples
         return out
@@ -379,11 +391,16 @@ class ModalSynth:
         return len(self._voice_ids)
 
     def set_gain(self, obj: int, gain: float) -> None:
+        row = self._row(obj)
+        if row is None:
+            return
         out_gain = self.params.out_gain.clone()
-        out_gain[obj] = gain
+        out_gain[row] = gain
         p = self.params
         self.params = BankParams(p.coeff_re, p.coeff_im, p.disp_scale, p.shapes, out_gain,
                                  p.sample_rate)
 
     def retune(self, obj: int, freqs, t60s) -> None:
-        self.params = tune_object(self.params, obj, freqs, t60s)
+        row = self._row(obj)
+        if row is not None:
+            self.params = tune_object(self.params, row, freqs, t60s)

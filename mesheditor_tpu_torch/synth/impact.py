@@ -144,15 +144,22 @@ def _regroup(impacts: ImpactTable, gain_imp, force_imp, n_obj: int, n_slots: int
 
 
 def render_block_impacts(params: BankParams, state: BankState, impacts: ImpactTable,
-                         num_samples: int, click_gain: float = 1.0, n_slots: int = 4):
+                         num_samples: int, click_gain: float = 1.0, n_slots: int = 4,
+                         shard=None):
     """Impact-only block render. `n_slots` bounds the live impacts per object (more are
-    dropped). Returns (state, impacts, out (num_samples,) float32)."""
+    dropped). With `shard` (parallel/sharding.py:ObjectBlock) the bank is this rank's block
+    of objects and the impact table the whole replicated one: the kernel sees only this
+    rank's impacts, the mix is summed over the group and the click, a sum over the whole
+    table, is added once after it. Returns (state, impacts, out (num_samples,) float32)."""
     n_obj = params.coeff_re.shape[0]
     force, prev_force = _impact_force_curves(impacts, num_samples)  # (I, S), (I,)
     click = impact_click(impacts, force, prev_force, click_gain)
-    gain_rok, force_sro = _regroup(impacts, impact_gain_rows(params, impacts), force,
-                                   n_obj, n_slots)
+    here = impacts if shard is None else shard.local_impacts(impacts)
+    gain_rok, force_sro = _regroup(here, impact_gain_rows(params, here), force, n_obj,
+                                   n_slots)
     mix, z_re, z_im = resonate(params.coeff_re, params.coeff_im, params.out_gain, gain_rok,
                                force_sro, state.z_re, state.z_im)
-    state, impacts, _ = finish_block(params, impacts, z_re, z_im, num_samples)
+    if shard is not None:
+        mix = shard.sum(mix)
+    state, impacts, _ = finish_block(params, impacts, z_re, z_im, num_samples, shard=shard)
     return state, impacts, mix + click

@@ -174,12 +174,17 @@ def voice_block(params: BankParams, voices: VoiceTable, pool: TrackPool, num_sam
 
 def finish_block(params: BankParams, impacts: ImpactTable, z_re: torch.Tensor,
                  z_im: torch.Tensor, num_samples: int, voices: VoiceTable | None = None,
-                 vblock: VoiceBlock | None = None, rm_out=None, pen_out=None):
+                 vblock: VoiceBlock | None = None, rm_out=None, pen_out=None, shard=None):
     """Advance impact ages, retire finished pulses, advance the voice carries (when a
     voice table is given with its block precompute and the recurrence's relief-mean and
     penetration carries), and zero objects whose gain-weighted energy fell below
     SILENT_ENERGY with no active excitation, live impact or live voice (reference:
     SilenceObject via RenderObjectFast, ModalAudio.cpp:206-209).
+
+    With `shard` (parallel/sharding.py:ObjectBlock) the bank is this rank's block of
+    objects and the tables are the whole replicated ones: ages and retirement read no
+    object, so they stay equal on every rank; silence reads this rank's objects only; each
+    live voice's carries come from the rank that owns its object.
     Returns (state, impacts, voices)."""
     n_obj = z_re.shape[0]
     new_age = impacts.age + num_samples
@@ -190,13 +195,17 @@ def finish_block(params: BankParams, impacts: ImpactTable, z_re: torch.Tensor,
         age=new_age, total=impacts.total,
     )
     energy = (z_re * z_re + z_im * z_im).sum(1)
-    obj = torch.where(active, impacts.obj, 0).long()
+    here = impacts if shard is None else shard.local_impacts(impacts)
+    obj = torch.where(here.active, here.obj, 0).long()
     has_excite = torch.zeros(n_obj, dtype=torch.float32, device=z_re.device)
-    has_excite.index_add_(0, obj, active.to(torch.float32))
+    has_excite.index_add_(0, obj, here.active.to(torch.float32))
     if voices is not None:
-        v_live = voices.active & (voices.obj < n_obj)
-        has_excite.index_add_(0, torch.where(v_live, voices.obj, 0).long(),
+        v_here = voices if shard is None else shard.local_voices(voices)
+        v_live = v_here.active & (v_here.obj >= 0) & (v_here.obj < n_obj)
+        has_excite.index_add_(0, torch.where(v_live, v_here.obj, 0).long(),
                               v_live.to(torch.float32))
+        if shard is not None:
+            rm_out, pen_out = shard.owned(voices, rm_out), shard.owned(voices, pen_out)
         voices = voices.replace(
             age=voices.age + num_samples,
             prev_height=torch.where(voices.active[:, None], vblock.heights[:, :, -1],

@@ -39,7 +39,7 @@ def setup():
     mesh = bar_tets(0.2, 0.06, 0.05, 7, 3, 3)
     kept = filter_degenerate(mesh.points, mesh.tets)
     quad = build_quad_mesh(kept, mesh.points.shape[0])
-    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad)
+    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad, device="cpu")
     k_diag, m_diag = pencil_diagonals(ops)
     pre = amg.build_amg(mesh.points, kept, quad, ops, k_diag, m_diag, SIGMA)
     jquad = jax_build_quad_mesh(kept, mesh.points.shape[0])

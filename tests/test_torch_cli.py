@@ -360,3 +360,24 @@ def test_edit_serves_a_gltf_scene_over_http(drop_scene, tmp_path):
         proc.wait(timeout=30)
         out.close()
     assert "Traceback" not in (tmp_path / "out.txt").read_text()
+
+
+def test_warmup_parses_its_sets_and_needs_a_card_for_cuda(monkeypatch):
+    """`warmup --set quickstart|bench|all --device`: the parser takes the three sets and
+    refuses others; on the default device (the card) it raises without one, before it
+    builds anything."""
+    import mesheditor_tpu_torch.__main__ as cli
+
+    seen = []
+    monkeypatch.setattr(cli, "cmd_warmup", lambda args: seen.append((args.set, args.device)))
+    for argv in (["warmup"], ["warmup", "--set", "bench", "--device", "cpu"],
+                 ["warmup", "--set", "all"]):
+        cli.main(argv)
+    assert seen == [("quickstart", "cuda"), ("bench", "cpu"), ("all", "cuda")]
+    with pytest.raises(SystemExit):
+        cli.main(["warmup", "--set", "nope"])
+    monkeypatch.undo()
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card refusal cannot be observed")
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(["warmup", "--device", "cuda"])

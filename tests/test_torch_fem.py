@@ -42,7 +42,7 @@ def pair(request):
     mesh = bar_tets(0.3, 0.05, 0.05, 4, 2, 2)
     kept = filter_degenerate(mesh.points, mesh.tets)
     quad = build_quad_mesh(kept, mesh.points.shape[0])
-    ops = assemble_element_matrices(mesh.points, kept, mat, quad)
+    ops = assemble_element_matrices(mesh.points, kept, mat, quad, device="cpu")
     jmesh = jax_bar_tets(0.3, 0.05, 0.05, 4, 2, 2)
     jkept = jax_assembly.filter_degenerate(jmesh.points, jmesh.tets)
     jquad = jax_build_quad_mesh(jkept, jmesh.points.shape[0])
@@ -111,7 +111,7 @@ def test_orphan_fixes_match_reference():
     points = np.concatenate([mesh.points, [[1.0, 1.0, 1.0]]])
     kept = filter_degenerate(points, mesh.tets)
     quad = build_quad_mesh(kept, points.shape[0])
-    ops = assemble_element_matrices(points, kept, CERAMIC.properties, quad)
+    ops = assemble_element_matrices(points, kept, CERAMIC.properties, quad, device="cpu")
     jquad = jax_build_quad_mesh(kept, points.shape[0])
     jops = jax_assembly.assemble_element_matrices(points, kept, CERAMIC.properties, jquad)
     assert (ops.k_fix.numpy() > 0).sum() == 3

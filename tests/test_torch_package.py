@@ -47,7 +47,7 @@ def test_imports_with_jax_blocked():
         " 'render.debug_draw', 'render.record', 'io.gltf', 'io.project', 'io.realimpact',"
         " 'io.realimpact_harness', 'scene.actions', 'scene.field_edit', 'scene.log',"
         " 'scene.session', 'scene.snapshot', 'scene.timeline', 'app', 'app.viewer', 'app.page',"
-        " 'viz']\n"
+        " 'viz', 'parallel', 'parallel.sharding', 'parallel.launch', 'parallel.dryrun']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
@@ -116,6 +116,7 @@ def test_render_layer_imports_neither_jax_nor_the_reference():
     ("io", set()),
     ("scene", set()),
     ("app", set()),
+    ("parallel", set()),
 ])
 def test_public_names_match_the_reference_package(sub, not_ported_yet):
     """Each ported subpackage exports what the reference's `__init__` exports, less the
@@ -165,6 +166,28 @@ def test_cuda_device_without_card_raises():
         make_synth([modes], device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         make_synth([modes])  # the default device is the card
+
+
+def test_builders_default_to_the_card_and_raise_without_one():
+    """assemble_element_matrices and build_bank default to the card, as mesh2modes does;
+    TrackPool.empty, like the other tables' `empty`, takes no default device."""
+    from mesheditor_tpu_torch.fem import (assemble_element_matrices, build_quad_mesh,
+                                          filter_degenerate)
+    from mesheditor_tpu_torch.synth import TrackPool, build_bank
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the no-card refusal cannot be observed")
+    mesh = bar_tets(0.1, 0.02, 0.02, 2, 1, 1)
+    kept = filter_degenerate(mesh.points, mesh.tets)
+    quad = build_quad_mesh(kept, mesh.points.shape[0])
+    with pytest.raises(RuntimeError, match="cuda"):
+        assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad)
+    modes = ModalModes(np.array([440.0]), np.array([0.5]), np.zeros((1, 1, 3), np.float32))
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_bank([modes])
+    with pytest.raises(TypeError, match="device"):
+        TrackPool.empty(2, 128)
+    assert TrackPool.empty(2, 128, "cpu").heights.shape == (2, 128)
 
 
 def test_cpu_render_takes_the_plain_version_and_counts_no_launch():

@@ -93,7 +93,7 @@ def test_engine_eigenvectors_span_reference_subspaces(bar):
     mesh, _ = bar
     kept = filter_degenerate(mesh.points, mesh.tets)
     quad = build_quad_mesh(kept, mesh.points.shape[0])
-    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad)
+    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad, device="cpu")
     k_diag, m_diag = pencil_diagonals(ops)
     pre = build_amg(mesh.points, kept, quad, ops, k_diag, m_diag, SIGMA)
     nev = 40
@@ -127,7 +127,8 @@ def dense_oracle(bar):
     mesh, _ = bar
     kept = filter_degenerate(mesh.points, mesh.tets)
     quad = build_quad_mesh(kept, mesh.points.shape[0])
-    k, m = _pencil_csr(assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad))
+    k, m = _pencil_csr(assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad,
+                                                 device="cpu"))
     return sla.eigh(k.toarray(), m.toarray(), eigvals_only=True, subset_by_index=[0, 44])
 
 
