@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels | --scene | --render | --files | --viewer | --multichip]
+    python3 chip_smoke.py [--kernels | --scene | --render | --files | --viewer | --multichip |
+                           --bench]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
@@ -13,7 +14,7 @@ turntable recording, the view and record commands) and the file formats (the fal
 scene through glTF and back, simulated from the file, the simulate/view/record/sessions
 commands on it, a RealImpact scan compared with its render) and the interactive viewer
 (the edit command's repaint, picks, gizmo and strike-to-audio, in process and as a
-server) — after
+server) and the measurement surface (the `bench` command and the bench tools) — after
 building the CUDA kernels from csrc/ and the tet mesher from native/tetmesher.cpp and
 checking each kernel against its plain PyTorch version on the card. Phases, in order (any
 failure exits non-zero before the final line):
@@ -28,7 +29,8 @@ failure exits non-zero before the final line):
   4. golden render: the fixed synthetic 8-object bank, RMS inside (8.82e-3, 9.10e-3);
   5. main path, solve: mesh2modes on the box (warm-up, then timed): 44,289 dofs, 250
      modes, f1 within 1e-4 of 5103.1 Hz, answered on the device, lowest 20 elastic modes
-     within 1e-5 (frequency) of scipy's shift-invert on the same assembled pencil;
+     within 1e-5 (frequency) of scipy's shift-invert on the same assembled pencil (run in
+     a process of its own beside phases a and b);
   6. main path, impact render: make_synth over 64 objects, one strike each, 1 s: finite,
      nonzero, and every fused call through the impact kernel;
   a. coupled kernel vs plain: coupled_resonator against the plain recurrence on six
@@ -129,11 +131,23 @@ failure exits non-zero before the final line):
      rank launches both kernels (the coupled one in each of the 94 blocks), each render's
      mix is within 2e-5 (impact) and 5e-5 (coupled) x peak of the unsharded card render,
      and the voice table's carries are equal on every rank; the per-block wall is printed;
-  d. timings.
+  m. bench: the measurement surface. m1: `python -m mesheditor_tpu_torch bench` as a fresh
+     process (the reference's metric and report keys last on stdout; the detail: 44,289
+     dofs, 250 modes, f1 within 1e-4 of 5103.1 Hz, the golden RMS in band, kernel parity
+     under phase 3's 2e-5, the torus at 51,402 dofs and f1 within 1e-4 of 5565.28 Hz; 10
+     impact launches). m2: render_bench's 21 cases through its main, 64 blocks streamed and
+     --fused, the counts set to 0 before each run: every case finite, voice cases once a
+     block through the coupled kernel, the others through the impact kernel; the first 2
+     blocks of every case held against the plain version (blocks_against_plain) and each
+     kernel timed at the widest shapes (1,024 objects; 256 objects x 200 modes; K = 512;
+     256 voices on one object). m3: edit_loop_bench; m4: cdt_bench, with the path that
+     answered; m5: realimpact_batch --devices 1 (one NCCL rank) over two scans written
+     here: its rows and a finite, non-zero sharded mix;
+  d. timings and the whole script's wall.
 
 The line before the last is the card's name and power limit; before it, one JSON line
-with each kernel's main-path launches, its launches in phases g, j, k and l, parity, times
-and bound. The last line is
+with each kernel's main-path launches, its launches in phases g, j, k, l and m, parity,
+times and bound (and its times at render_bench's widest shapes). The last line is
 {"ok": true, ...}.
 
 --kernels runs phases 1-3 and a only (the kernels against their plain versions, and their
@@ -142,7 +156,7 @@ with "scene: ok". --render runs phases 1 and i only and ends with "render: ok". 
 runs phases 1-2 and j only (solving the falling scene into a temporary store first) and
 ends with "files: ok". --viewer runs phases 1-2 and k only and ends with "viewer: ok".
 --multichip runs phases 1-2 and l only (solving the box unsharded first) and ends with
-"multichip: ok".
+"multichip: ok". --bench runs phases 1-2 and m only and ends with "bench: ok".
 """
 
 from __future__ import annotations
@@ -162,21 +176,12 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent
 F1_HZ = 5103.1  # the bench box's first elastic mode (reference runs: 5103.037, 5103.115)
-GOLDEN_BAND = (8.82e-3, 9.10e-3)
 TORUS_DOFS, TORUS_MODES, TORUS_F1_HZ = 51_402, 12, 5565.28  # the reference bench's CDT case
 BLOCK_DEADLINE_MS = 512 / 48_000.0 * 1e3
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip()
 
 
 def median_ms(fn, sync, reps: int = 10) -> float:
@@ -767,38 +772,6 @@ def bound(flops, nbytes) -> tuple[float, str]:
     return (1e3 * t_ops, "operations") if t_ops >= t_bytes else (1e3 * t_bytes, "bytes")
 
 
-def golden_rms(device) -> float:
-    """bench.py's golden render, rebuilt on the port."""
-    from mesheditor_tpu_torch.api import make_synth
-    from mesheditor_tpu_torch.synth import ModalEvent
-    from mesheditor_tpu_torch.types import ModalModes
-
-    rng = np.random.default_rng(20260820)
-    k = 64
-    modes = ModalModes(np.linspace(120.0, 9000.0, k), np.linspace(1.2, 0.15, k),
-                       (rng.standard_normal((4, k, 3)) * 0.02).astype(np.float32))
-    synth = make_synth([modes] * 8, sample_rate=48_000.0, device=device)
-    for o in range(8):
-        synth.enqueue(ModalEvent(
-            kind="impact", obj=o, expos=o % 4, j=(0.04, 0.03, 0.01),
-            pulse_step=1.0 / 140.0, pulse_gamma=np.pi / 2 / 140.0, accel_amp=0.0005,
-        ))
-    out = np.asarray(synth.render_seconds(1.0, 512), np.float64)
-    return float(np.sqrt((out ** 2).mean()))
-
-
-def bench_box(resolution=(18, 10, 9)):
-    """The bench's mesh, solver settings and excitation points (bench.py:57-60)."""
-    from mesheditor_tpu_torch import SolverConfig
-    from mesheditor_tpu_torch.mesh import box_tets
-
-    mesh = box_tets((0.3, 0.16, 0.15), resolution)
-    cfg = SolverConfig(num_modes=256, num_fem_modes=256, max_mode_freq=48_000.0,
-                       tolerance=1e-6)
-    excite = mesh.points[:: max(mesh.points.shape[0] // 10, 1)][:10]
-    return mesh, cfg, excite
-
-
 def host_oracle(mesh, n_eig: int, sigma: float, material=None) -> np.ndarray:
     """Lowest n_eig eigenvalues of the port's own assembled pencil by scipy shift-invert
     Lanczos on the host (independent of the device engine)."""
@@ -816,25 +789,6 @@ def host_oracle(mesh, n_eig: int, sigma: float, material=None) -> np.ndarray:
     k, m = _pencil_csr(ops)
     vals = spla.eigsh(k, k=n_eig, M=m, sigma=sigma, which="LM", return_eigenvectors=False)
     return np.sort(vals)
-
-
-def render_main(result, device, n_objects=64, mesh=None):
-    """bench.py's build_and_render on the port: 64 objects, one strike each, 1 s (the synth
-    object-sharded over `mesh`'s dp axis when one is given)."""
-    from mesheditor_tpu_torch.api import make_synth
-    from mesheditor_tpu_torch.parallel import shard_synth
-    from mesheditor_tpu_torch.synth import ModalEvent
-
-    synth = make_synth([result] * n_objects, sample_rate=48_000.0, device=device)
-    if mesh is not None:
-        synth = shard_synth(synth, mesh)
-    for o in range(n_objects):
-        synth.enqueue(ModalEvent(
-            kind="impact", obj=o, expos=o % max(result.modes.shapes.shape[0], 1),
-            j=(0.05, 0.02, 0.01), pulse_step=1.0 / 150.0,
-            pulse_gamma=np.pi / 2 / 150.0, accel_amp=0.001,
-        ))
-    return synth.render_seconds(1.0, 512)
 
 
 def coupled_kernel_phase(card: str) -> dict:
@@ -1857,16 +1811,17 @@ def session_through_actions(root):
     return snapshot_scene(session.registry), session.dir
 
 
-def write_realimpact_scan(root: Path) -> Path:
-    """A miniature RealImpact object directory under `root`, the recipe of
+def write_realimpact_scan(root: Path, name: str = REALIMPACT_OBJECT,
+                          scale=REALIMPACT_SCALE) -> Path:
+    """A miniature RealImpact object directory `name` under `root`, the recipe of
     tests/test_realimpact_loader.py: the dataset's metadata arrays from a seed, the mesh
-    `icosphere_surface(4)` scaled to a 15 cm bowl-sized ellipsoid (the anisotropic scale
-    splits the sphere's degenerate pairs) and the five impact vertices on it. The
-    recordings come later (`write_recordings`). Returns the directory."""
+    `icosphere_surface(4)` scaled to an ellipsoid (by default 15 cm and bowl-sized; the
+    anisotropic scale splits the sphere's degenerate pairs) and the five impact vertices on
+    it. The recordings come later (`write_recordings`). Returns the directory."""
     from mesheditor_tpu_torch.io.realimpact import NUM_IMPACT_VERTICES, NUM_LISTENER_POINTS
     from mesheditor_tpu_torch.mesh import icosphere_surface, save_obj
 
-    obj_dir = root / REALIMPACT_OBJECT
+    obj_dir = root / name
     pre = obj_dir / "preprocessed"
     pre.mkdir(parents=True)
     rng = np.random.default_rng(0)
@@ -1876,7 +1831,7 @@ def write_realimpact_scan(root: Path) -> Path:
     np.save(pre / "micID.npy", np.tile(np.arange(15), 40)[:n])
     np.save(pre / "listenerXYZ.npy", rng.uniform(-2000, 2000, (n, 3)))
     pts, tris = icosphere_surface(4)
-    scale3 = np.asarray(REALIMPACT_SCALE)
+    scale3 = np.asarray(scale)
     save_obj(pre / "transformed.obj", pts * scale3, tris)
     np.save(pre / "vertexXYZ.npy", np.repeat(pts[:NUM_IMPACT_VERTICES] * scale3, n, axis=0))
     return obj_dir
@@ -2495,7 +2450,7 @@ def multichip_rank(device, result) -> dict:
     import torch
     import torch.distributed as dist
 
-    from mesheditor_tpu_torch import mesh2modes
+    from mesheditor_tpu_torch import bench, mesh2modes
     from mesheditor_tpu_torch.materials import CERAMIC
     from mesheditor_tpu_torch.parallel import make_mesh, sharding
     from mesheditor_tpu_torch.synth import coupled, impact
@@ -2503,7 +2458,7 @@ def multichip_rank(device, result) -> dict:
     world = dist.get_world_size()
     tp = make_mesh(world, ("tp",), device=device)
     dp = make_mesh(world, ("dp",), device=device)
-    mesh, cfg, excite = bench_box()
+    mesh, cfg, excite = bench.bench_box()
     sharding.ALL_REDUCES = sharding.ALL_REDUCE_BYTES = sharding.BROADCASTS = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2519,7 +2474,7 @@ def multichip_rank(device, result) -> dict:
         "broadcasts": sharding.BROADCASTS}}
 
     impact.LAUNCHES = coupled.LAUNCHES = 0
-    audio = render_main(result, device, mesh=dp)
+    audio = bench.render_main(result, device, mesh=dp)
     out["impact"] = {"audio": audio, "launches": (impact.LAUNCHES, coupled.LAUNCHES)}
 
     synth, voices = sustained_scene(result, device, mesh=dp)
@@ -2594,7 +2549,7 @@ def multichip_phase(device, card: str, result=None) -> dict:
     Returns {kernel: (launches, max error / peak)} over both."""
     import torch
 
-    from mesheditor_tpu_torch import mesh2modes
+    from mesheditor_tpu_torch import bench, mesh2modes
     from mesheditor_tpu_torch.materials import CERAMIC
     from mesheditor_tpu_torch.parallel.dryrun import dryrun_multichip
     from mesheditor_tpu_torch.parallel.launch import spawn
@@ -2608,10 +2563,10 @@ def multichip_phase(device, card: str, result=None) -> dict:
         raise AssertionError("NCCL with more ranks than cards was not refused")
 
     if result is None:
-        mesh, cfg, excite = bench_box()
+        mesh, cfg, excite = bench.bench_box()
         result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
     synth, voices = sustained_scene(result, device)
-    refs = {"impact": render_main(result, device),
+    refs = {"impact": bench.render_main(result, device),
             "sustained": sustained_render(synth, voices)[0]}
 
     t0 = time.perf_counter()
@@ -2633,6 +2588,233 @@ def multichip_phase(device, card: str, result=None) -> dict:
         stats[kernel][0] += launches
         stats[kernel][1] = max(stats[kernel][1], err)
     return stats
+
+
+# ---- phase m: the bench command and the bench tools ----
+
+IMPACT_TOL = 2e-5  # phase 3's output tolerance for the impact kernel, x peak
+BENCH_LAUNCHES = 10  # 3 fused calls each in the warm-up, timed and golden seconds, 1 parity
+# render_bench's widest shapes, (objects, modes, voices, impacts), timed on one 512-sample
+# block: the most objects, K = 512 over the warp path's 256, 256 voices on one object.
+WIDEST = {"impact": ((1024, 64, 0, 16), (256, 200, 0, 256), (1, 512, 0, 4)),
+          "coupled": ((256, 200, 256, 0), (1, 200, 256, 0), (1, 512, 4, 0))}
+
+
+def bench_command(card: str) -> dict:
+    """m1: `python -m mesheditor_tpu_torch bench` as a fresh process on the card: its report
+    line (the reference's metric and keys), its detail (the bench box's and the torus's
+    answers, the golden band, kernel parity within phase 3's impact tolerance) and the
+    impact kernel's launches it printed. Returns the detail with the launches and wall."""
+    import re
+
+    from mesheditor_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mesheditor_tpu_torch", "bench"], cwd=REPO,
+                          capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    assert proc.returncode == 0, f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}"
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    detail = json.loads(proc.stderr.strip().splitlines()[-1])
+    assert list(report) == ["metric", "value", "unit", "vs_baseline"], report
+    assert report["metric"] == bench.METRIC and report["unit"] == "x_realtime", report
+    assert detail["dofs"] == 44_289 and detail["modes"] == 250, detail
+    assert abs(detail["f1_hz"] - F1_HZ) / F1_HZ < 1e-4, detail["f1_hz"]
+    band = bench.RMS_BAND
+    assert band[0] <= detail["golden_render_rms"] <= band[1], detail["golden_render_rms"]
+    assert detail["kernel_parity"] < IMPACT_TOL, detail["kernel_parity"]
+    assert detail["cdt_dofs"] == TORUS_DOFS, detail["cdt_dofs"]
+    assert abs(detail["cdt_f1_hz"] - TORUS_F1_HZ) / TORUS_F1_HZ < 1e-4, detail["cdt_f1_hz"]
+    assert detail["card"] == card, (detail["card"], card)
+    launches = int(re.search(r"impact kernel launches: (\d+)", proc.stderr).group(1))
+    assert launches == BENCH_LAUNCHES, f"bench launched the impact kernel {launches} times"
+    for line in proc.stderr.strip().splitlines()[:-1]:
+        log(f"[bench] | {line}")
+    log(f"[bench] m1 `python -m mesheditor_tpu_torch bench` ({wall:.1f} s as a process): "
+        f"{json.dumps(report)}; impact launches {launches}; detail {json.dumps(detail)}")
+    return {**detail, "launches": launches, "wall_s": wall, "value": report["value"]}
+
+
+@contextlib.contextmanager
+def kernel_args():
+    """While open, {"impact": ..., "coupled": ...}: the arguments of the latest call of
+    each kernel's wrapper (impact.resonate, coupled.resonate_coupled)."""
+    from mesheditor_tpu_torch.synth import coupled, impact
+
+    seen: dict = {}
+    inner = impact.resonate, coupled.resonate_coupled
+
+    def recorded(kind, fn):
+        def call(*args):
+            seen[kind] = args
+            return fn(*args)
+
+        return call
+
+    impact.resonate = recorded("impact", inner[0])
+    coupled.resonate_coupled = recorded("coupled", inner[1])
+    try:
+        yield seen
+    finally:
+        impact.resonate, coupled.resonate_coupled = inner
+
+
+def time_widest(kind: str, shape, card: str) -> dict:
+    """One 512-sample block of render_bench's scene `shape` on the card, its kernel call's
+    arguments captured: the kernel's device time (CUDA events over back-to-back launches of
+    the bound C entry), the plain version's host-clock time on the same card tensors,
+    max |kernel - plain| of the mix and the bound from the call's shapes."""
+    import torch
+
+    from mesheditor_tpu_torch.scripts import render_bench as rb
+    from mesheditor_tpu_torch.synth import coupled, impact
+
+    synth, voices = rb.scene(*shape, device="cuda")
+    with kernel_args() as seen:
+        synth.publish_voices(voices)
+        synth.render(rb.BLOCK)
+    torch.cuda.synchronize()
+    args = seen[kind]
+    if kind == "impact":
+        mix_k = impact.resonate(*args)[0]
+        mix_p = impact._resonate_plain(*args)[0]
+        ms = event_ms(impact._bind(*args)[0])
+        plain_ms = median_ms(lambda: impact._resonate_plain(*args), torch.cuda.synchronize,
+                             reps=3)
+        n_obj, n_modes = args[0].shape
+        work = impact_flops_bytes(n_obj, n_modes, args[3].shape[0], rb.BLOCK)
+        plan = None
+    else:
+        order, offsets = coupled._group_voices(args[12], args[0].shape[0], args[13])
+        mix_k = coupled.resonate_coupled(*args)[0]
+        mix_p = coupled._resonate_coupled_plain(*args[:13], order, offsets)[0]
+        ms = event_ms(coupled._bind(*args)[0])
+        plain_ms = median_ms(
+            lambda: coupled._resonate_coupled_plain(*args[:13], order, offsets),
+            torch.cuda.synchronize, reps=3)
+        work = coupled_flops_bytes(args, rb.BLOCK)
+        plan = coupled.coupled_plan(args[0].shape[1], args[7].shape[0], args[13])
+    peak = max(float(mix_p.abs().max()), 1e-30)
+    err = float((mix_k - mix_p).abs().max())
+    tol = IMPACT_TOL if kind == "impact" else COUPLED_TOL["out"]
+    assert err < tol * peak, f"{kind} {shape}: kernel off plain by {err:.3e} x peak {peak:.3e}"
+    bound_ms, bound_by = bound(*work)
+    out = {"shape": list(shape), "bank": list(args[0].shape), "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err, "plan": plan}
+    log(f"[render_bench] {kind} kernel at {shape} (bank {tuple(args[0].shape)}, S=512): "
+        f"device {ms:.4f} ms (events), plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}), {bound_ms / ms:.2%} of it, |kernel - plain| {err:.3e} "
+        f"(peak {peak:.3e}), plan {plan} ({card})")
+    return out
+
+
+def render_bench_phase(device, card: str, blocks: int = 64, checked_blocks: int = 2) -> dict:
+    """m2: render_bench's 21 cases through its main, block-streamed then --fused, the
+    counts set to 0 before each run and read after it: every case's timed stretch finite,
+    the voice cases through the coupled kernel once a block, the others through the impact
+    kernel (once a block streamed, once fused). Then the first `checked_blocks` blocks of
+    every case rendered again with each block held against the plain version
+    (blocks_against_plain), and each kernel timed at the widest shapes."""
+    from mesheditor_tpu_torch.scripts import render_bench as rb
+    from mesheditor_tpu_torch.synth import coupled, impact
+
+    out = {"launches": {"impact": 0, "coupled": 0}, "rows": {}}
+    for fused in (False, True):
+        argv = ["--blocks", str(blocks), "--device", device] + (["--fused"] if fused else [])
+        impact.LAUNCHES = coupled.LAUNCHES = 0
+        t0 = time.perf_counter()
+        rows = rb.main(argv)
+        wall = time.perf_counter() - t0
+        counts = impact.LAUNCHES, coupled.LAUNCHES
+        for row in rows:
+            o, k, v, i = row["case"]
+            assert row["finite"], f"render_bench {row['case']}: output not finite"
+            want = (0, blocks) if v else ((1, 0) if fused else (blocks, 0))
+            got = row["impact_launches"], row["coupled_launches"]
+            assert got == want, f"render_bench {row['case']}: launches {got}, not {want}"
+        out["launches"]["impact"] += counts[0]
+        out["launches"]["coupled"] += counts[1]
+        out["rows"]["fused" if fused else "streamed"] = rows
+        log(f"[render_bench] m2 {'fused' if fused else 'streamed'}, {blocks} blocks: "
+            f"{len(rows)} cases finite in {wall:.1f} s, impact launches {counts[0]}, "
+            f"coupled launches {counts[1]} (with the warm-up calls) ({card})")
+
+    with blocks_against_plain() as stats:
+        for case in rb.CASES:
+            synth, voices = rb.scene(*case, device=device)
+            for _ in range(checked_blocks):
+                synth.publish_voices(voices)
+                synth.render(rb.BLOCK)
+            if voices:
+                o, k, v, i = case
+                plan = coupled.coupled_plan(synth.params.coeff_re.shape[1], -(-i // o),
+                                            -(-v // o))
+                log(f"[render_bench] {case}: coupled plan {plan['path']} "
+                    f"({plan['threads_per_cta']} threads a CTA)")
+    for kind in ("impact", "coupled"):
+        st = stats[kind]
+        assert st["blocks"] == checked_blocks * sum(
+            (c[2] > 0) == (kind == "coupled") for c in rb.CASES), (kind, st)
+        log(f"[render_bench] {kind}: the first {checked_blocks} blocks of each case held "
+            f"against the plain version: " + json.dumps(st))
+    out["checked"] = stats
+    out["widest"] = {kind: [time_widest(kind, shape, card) for shape in shapes]
+                     for kind, shapes in WIDEST.items()}
+    return out
+
+
+def solve_paths() -> tuple[int, int]:
+    from mesheditor_tpu_torch.solve import lobpcg
+
+    return lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES
+
+
+def bench_phase(device, card: str, blocks: int = 64) -> dict:
+    """Phase m: the bench command (m1) and the bench tools (m2 render_bench, m3
+    edit_loop_bench, m4 cdt_bench at their defaults, m5 realimpact_batch with --devices 1
+    over a two-object corpus written here). Returns each kernel's launches and checks."""
+    from mesheditor_tpu_torch.scripts import cdt_bench, edit_loop_bench, realimpact_batch
+
+    t_phase = time.perf_counter()
+    m1 = bench_command(card)
+    m2 = render_bench_phase(device, card, blocks=blocks)
+
+    before = solve_paths()
+    t0 = time.perf_counter()
+    loop = edit_loop_bench.main(["--device", device])
+    after = solve_paths()
+    rescaled = loop["rescaled"]
+    assert rescaled is not None and np.isfinite(rescaled.freqs).all()
+    assert loop["cold"].modes.num_modes > 0 and loop["warm"].modes.num_modes > 0
+    log(f"[edit_loop] m3 in {time.perf_counter() - t0:.1f} s: cold {loop['cold_s']:.3f} s "
+        f"({loop['cold'].profile.restarts} iterations, {loop['cold'].profile.dofs} dofs), warm "
+        f"{loop['warm_s']:.3f} s ({loop['warm'].profile.restarts} iterations), rescale "
+        f"{loop['rescale_s'] * 1e3:.3f} ms, f1 {float(rescaled.freqs[0]):.4f} Hz against the "
+        f"printed closed form f1 x sqrt(0.8 / 1.3) {loop['closed_form_f1']:.4f}; device solves "
+        f"{after[0] - before[0]}, host solves {after[1] - before[1]} ({card})")
+
+    t0 = time.perf_counter()
+    cdt = cdt_bench.main(["--device", device])
+    assert cdt["modes"] > 0 and np.isfinite(cdt["f1_hz"]), cdt
+    log(f"[cdt_bench] m4 in {time.perf_counter() - t0:.1f} s: answered by the {cdt['path']} "
+        f"path, {cdt['iters']} iterations, {cdt['dofs']} dofs, {cdt['modes']} modes ({card})")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        root = Path(tmp)
+        write_realimpact_scan(root)
+        write_realimpact_scan(root, name="12_GlassGoblet", scale=(0.08, 0.1, 0.08))
+        t0 = time.perf_counter()
+        rows, mix = realimpact_batch.main([str(root), "--devices", "1", "--device", device])
+    assert [r["object"] for r in rows] == ["GlassGoblet", "BowlCeramic"], rows
+    assert all(r["modes"] > 0 and r["f1_hz"] > 0 for r in rows), rows
+    assert mix.shape == (512,) and np.isfinite(mix).all() and np.abs(mix).max() > 0
+    log(f"[realimpact_batch] m5 in {time.perf_counter() - t0:.1f} s: "
+        + "; ".join(f"{r['object']} ({r['material']}) {r['dofs']} dofs, {r['modes']} modes, "
+                    f"f1 {r['f1_hz']:.1f} Hz, {r['solve_s']} s" for r in rows)
+        + f"; sharded mix peak {np.abs(mix).max():.3e} over 1 rank "
+        f"({'NCCL' if device == 'cuda' else 'gloo'}) ({card})")
+    log(f"[bench] phase m in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"m1": m1, "m2": m2, "edit_loop": loop, "cdt": cdt, "corpus": rows}
 
 
 def run(stack: contextlib.ExitStack) -> int:
@@ -2657,7 +2839,14 @@ def run(stack: contextlib.ExitStack) -> int:
     only.add_argument("--multichip", action="store_true",
                       help="only the build and the multi-device phase (NCCL over every "
                            "card, then two ranks sharing a card under gloo)")
+    only.add_argument("--bench", action="store_true",
+                      help="only the build and the bench phase (the bench command, "
+                           "render_bench, edit_loop_bench, cdt_bench, realimpact_batch)")
     args = parser.parse_args()
+    t_start = time.perf_counter()
+
+    def wall(label: str) -> None:
+        log(f"[wall] {label} at {time.perf_counter() - t_start:.1f} s")
     try:
         import torch
     except ImportError:
@@ -2675,7 +2864,9 @@ def run(stack: contextlib.ExitStack) -> int:
     device = "cuda"
 
     # 1. card
-    card = card_line()
+    from mesheditor_tpu_torch._device import card_label
+
+    card = card_label(torch.device("cuda", 0))
     kind = torch.cuda.get_device_name(0)
     log(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
@@ -2718,7 +2909,13 @@ def run(stack: contextlib.ExitStack) -> int:
         multichip_phase(device, card)
         log("multichip: ok")
         return 0
+    if args.bench:
+        bench_phase(device, card)
+        log(f"[timing] whole script {time.perf_counter() - t_start:.1f} s ({card})")
+        log("bench: ok")
+        return 0
 
+    wall("build done")
     # 3. kernel vs plain on the card
     from mesheditor_tpu_torch.synth import impact
 
@@ -2740,17 +2937,21 @@ def run(stack: contextlib.ExitStack) -> int:
         log("kernels: ok")
         return 0
 
+    wall("phase 3 done")
     # 4. golden render
-    rms = golden_rms(device)
-    assert GOLDEN_BAND[0] <= rms <= GOLDEN_BAND[1], f"golden rms {rms:.4e} outside {GOLDEN_BAND}"
-    log(f"[golden] render rms {rms:.6e} inside {GOLDEN_BAND}")
+    from mesheditor_tpu_torch import bench
+
+    rms = bench._golden_render_rms(48_000.0, device)
+    band = bench.RMS_BAND
+    assert band[0] <= rms <= band[1], f"golden rms {rms:.4e} outside {band}"
+    log(f"[golden] render rms {rms:.6e} inside {band}")
 
     # 5-6. the main path, with every count reset just before it
     from mesheditor_tpu_torch import mesh2modes
     from mesheditor_tpu_torch.materials import CERAMIC
     from mesheditor_tpu_torch.solve import lobpcg
 
-    mesh, cfg, excite = bench_box()
+    mesh, cfg, excite = bench.bench_box()
     impact.LAUNCHES = 0
     lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
 
@@ -2772,17 +2973,8 @@ def run(stack: contextlib.ExitStack) -> int:
         f"f1 {f1:.4f} Hz, iterations {result.profile.restarts}, device solves "
         f"{lobpcg.DEVICE_SOLVES}, host solves {lobpcg.HOST_SOLVES}")
 
-    # Independent oracle: host shift-invert on the same assembled pencil.
     t0 = time.perf_counter()
-    ref = host_oracle(mesh, 26, -((2 * np.pi * cfg.min_mode_freq) ** 2))
-    got = result.summary.eigenvalues[6:26]
-    rel_f = np.abs(np.sqrt(got) / np.sqrt(ref[6:26]) - 1.0)
-    assert rel_f.max() < 1e-5, f"lowest 20 elastic modes off scipy by {rel_f.max():.3e}"
-    log(f"[oracle] scipy eigsh {time.perf_counter() - t0:.1f} s: lowest 20 elastic "
-        f"frequencies within {rel_f.max():.3e} relative")
-
-    t0 = time.perf_counter()
-    audio = render_main(result, device)
+    audio = bench.render_main(result, device)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = impact.LAUNCHES
@@ -2793,6 +2985,15 @@ def run(stack: contextlib.ExitStack) -> int:
     log(f"[render] 64 objects x 1 s: rms {float(np.sqrt((audio ** 2).mean())):.6e}, "
         f"kernel launches {launches}")
 
+    # Independent oracle: host shift-invert on the same assembled pencil, in a process of
+    # its own beside phases a and b (their device times are CUDA events; the host is idle
+    # for most of them), after the timed solve and render
+    oracle_dir = Path(stack.enter_context(tempfile.TemporaryDirectory(prefix="chip_smoke_")))
+    oracle, oracle_out = start_oracle(mesh, 26, -((2 * np.pi * cfg.min_mode_freq) ** 2),
+                                      oracle_dir)
+    stack.callback(oracle.kill)
+
+    wall("phases 4-6 done")
     # (a) coupled kernel vs plain on the card
     from mesheditor_tpu_torch.synth import coupled
 
@@ -2804,6 +3005,14 @@ def run(stack: contextlib.ExitStack) -> int:
     assert coupled.LAUNCHES == before + 8, "rest scene did not go through the kernel"
     assert peak == 0.0, f"resting contact not silent: peak {peak!r}"
     log("[rest] 8 blocks of 512 with a resting contact: peak exactly 0.0")
+
+    text, err = oracle.communicate(timeout=900)
+    assert oracle.returncode == 0, f"the scipy oracle exited {oracle.returncode}:\n{err}"
+    ref = np.load(oracle_out)
+    rel_f = np.abs(np.sqrt(result.summary.eigenvalues[6:26]) / np.sqrt(ref[6:26]) - 1.0)
+    assert rel_f.max() < 1e-5, f"lowest 20 elastic modes off scipy by {rel_f.max():.3e}"
+    log(f"[oracle] scipy eigsh {float(text.split()[-1]):.1f} s in a process of its own: lowest "
+        f"20 elastic frequencies within {rel_f.max():.3e} relative")
 
     # (c) the sustained main path: 64 objects, 16 bridge voices, 1 s in 512-sample blocks
     synth, voices = sustained_scene(result, device)
@@ -2839,6 +3048,7 @@ def run(stack: contextlib.ExitStack) -> int:
     else:
         log(f"[profile] sustained frame loop ({card}): " + json.dumps(prof))
 
+    wall("phases a-c done")
     # (e)-(h) the scene-in / audio-out path; phase g's store serves phase j
     surface_phase(device, card)
     store_batch_phase(device, card)
@@ -2847,25 +3057,36 @@ def run(stack: contextlib.ExitStack) -> int:
     scene_kernels = scene["kernels"]
     cli_phase()
 
+    wall("phases e-h done")
     # (i) the render layer: no kernel of its own, and it launches neither resonator kernel
     # (timed 3 times a chunk here, 5 with --render, to keep the whole run in its time)
     impact.LAUNCHES = coupled.LAUNCHES = 0
     render_phase(device, card, timing_reps=3)
     assert impact.LAUNCHES == coupled.LAUNCHES == 0, "the render launched a resonator kernel"
 
+    wall("phase i done")
     # (j) files: glTF in and out, the commands on a .glb, sessions, RealImpact (the counts
     # are set to 0 at its start and read at its end)
     files_kernels = files_phase(device, card, scene_store, scene["bodies"])
     assert all(files_kernels[k]["launches"] > 0 for k in files_kernels), files_kernels
 
+    wall("phase j done")
     # (k) the viewer: the edit command's repaint, picks, gizmo and strike (the counts are
     # set to 0 just before the strike and read just after it)
     viewer_kernels = viewer_phase(device, card)
 
+    wall("phase k done")
     # (l) the multi-device layer: the counts are set to 0 in every rank just before each
     # sharded render and read just after it
     multichip = multichip_phase(device, card, result)
 
+    wall("phase l done")
+    # (m) the bench command and the bench tools: the counts are set to 0 just before each
+    # of render_bench's runs and read just after it (m1's come from its own process)
+    m = bench_phase(device, card)
+    m2 = m["m2"]
+
+    wall("phase m done")
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
         f"{block_median:.3f} ({card})")
@@ -2888,6 +3109,11 @@ def run(stack: contextlib.ExitStack) -> int:
         "scene_max_rel_err": scene_kernels["impact"]["max_rel_err"],
         "multichip_launches": multichip["impact"][0],
         "multichip_max_rel_err": multichip["impact"][1],
+        "bench_launches": m["m1"]["launches"], "bench_kernel_parity": m["m1"]["kernel_parity"],
+        "render_bench_launches": m2["launches"]["impact"],
+        "render_bench_blocks_checked": m2["checked"]["impact"]["blocks"],
+        "render_bench_max_rel_err": m2["checked"]["impact"]["max_rel_err"],
+        "render_bench_widest": m2["widest"]["impact"],
         "max_abs_err": bench_stats["max_abs_err"],
         "ms": bench_stats["ms"], "plain_ms": bench_stats["plain_ms"],
         "bound_ms": imp_bound, "bound_by": imp_by, "library_ms": None,
@@ -2905,10 +3131,15 @@ def run(stack: contextlib.ExitStack) -> int:
         "scene_max_rel_err": scene_kernels["coupled"]["max_rel_err"],
         "multichip_launches": multichip["coupled"][0],
         "multichip_max_rel_err": multichip["coupled"][1],
+        "render_bench_launches": m2["launches"]["coupled"],
+        "render_bench_blocks_checked": m2["checked"]["coupled"]["blocks"],
+        "render_bench_max_rel_err": m2["checked"]["coupled"]["max_rel_err"],
+        "render_bench_widest": m2["widest"]["coupled"],
         "max_abs_err": c512["max_abs_err"],
         "ms": c512["ms"], "plain_ms": c512["plain_ms"],
         "bound_ms": c512["bound_ms"], "bound_by": c512["bound_by"], "library_ms": None,
     }]}))
+    log(f"[timing] whole script {time.perf_counter() - t_start:.1f} s ({card})")
     log(card)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

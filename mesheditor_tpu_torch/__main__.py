@@ -5,10 +5,10 @@ The headless analog of the reference's CLI (main.cpp:1387-1433 — --headless/--
 --screenshot modes): solve meshes to modal models, render strikes to wav, inspect models,
 simulate a glTF scene to audio (and video), screenshot and record a mesh or a glTF scene,
 and list or restore crash-recovery sessions, without an interactive session; `edit` serves
-the interactive viewer/editor to a browser, and `warmup` builds what the port builds at
-first use and runs the standard shapes once. `--device` names where the solves and the
-renders run ("cuda" by default; "cpu" runs the plain PyTorch path on the host). The
-reference package's `bench` is not ported: it belongs with the port's benchmark.
+the interactive viewer/editor to a browser, `bench` runs the headline benchmark
+(bench.py), and `warmup` builds what the port builds at first use and runs the standard
+shapes once. `--device` names where the solves and the renders run ("cuda" by default;
+"cpu" runs the plain PyTorch path on the host).
 """
 
 from __future__ import annotations
@@ -306,32 +306,20 @@ def _warm_quickstart(device):
 
 
 def _warm_bench(device):
-    """bench.py:57-77's shapes: the 9,720-tet box to 256 modes, then 64 strikes rendered
-    for 1 s in 512-sample blocks."""
-    import numpy as np
+    """The headline benchmark once, without its report (bench.py's shapes: the 9,720-tet box
+    to 256 modes, 64 strikes rendered for 1 s, the golden render, the CDT torus)."""
+    from . import bench
 
-    from . import SolverConfig, mesh2modes
-    from .api import make_synth
-    from .materials import CERAMIC
-    from .mesh import box_tets
-    from .synth import ModalEvent
+    _report, detail = bench.run(report_json=False, device=device)
+    print(f"  {detail['modes']} modes, f1 {detail['f1_hz']:.1f} Hz, {detail['dofs']} dofs")
 
-    mesh = box_tets((0.3, 0.16, 0.15), (18, 10, 9))
-    cfg = SolverConfig(num_modes=256, num_fem_modes=256, max_mode_freq=48_000.0,
-                       tolerance=1e-6)
-    excite = mesh.points[:: max(mesh.points.shape[0] // 10, 1)][:10]
-    result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
-    synth = make_synth([result] * 64, sample_rate=48_000.0, device=device)
-    for o in range(64):
-        synth.enqueue(ModalEvent(kind="impact", obj=o,
-                                 expos=o % max(result.modes.shapes.shape[0], 1),
-                                 j=(0.05, 0.02, 0.01), pulse_step=1.0 / 150.0,
-                                 pulse_gamma=np.pi / 2 / 150.0, accel_amp=0.001))
-    audio = synth.render_seconds(1.0, 512)
-    if not np.isfinite(audio).all():
-        raise RuntimeError("the bench render is not finite")
-    print(f"  {result.modes.num_modes} modes, f1 {result.modes.freqs[0]:.1f} Hz, "
-          f"{result.profile.dofs} dofs")
+
+def cmd_bench(args):
+    """Headline benchmark: eigensolve of the 10k-tet box to 256 modes plus a 64-object
+    second of render, against real time (the reference's `bench`, which runs bench.py)."""
+    from . import bench
+
+    bench.run(device=args.device)
 
 
 def main(argv=None):
@@ -413,6 +401,11 @@ def main(argv=None):
                    help="overlay collider wireframes (glTF scenes)")
     v.add_argument("--device", default="cuda")
     v.set_defaults(fn=cmd_view)
+
+    b = sub.add_parser("bench", help="headline benchmark: 10k-tet solve + 64-object render "
+                                     "vs real time")
+    b.add_argument("--device", default="cuda")
+    b.set_defaults(fn=cmd_bench)
 
     wu = sub.add_parser("warmup", help="build the kernels and the mesher, run standard "
                                        "shapes once")

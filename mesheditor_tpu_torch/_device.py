@@ -21,3 +21,17 @@ def synchronize(device: torch.device) -> None:
     """Wait for queued device work (stage timers measure work, not its enqueue)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def card_label(device: torch.device) -> str:
+    """The card a measurement ran on, as `nvidia-smi --query-gpu=name,power.limit` gives it
+    (a card set below its full power limit runs slower under load); "cpu" on the CPU."""
+    if device.type != "cuda":
+        return "cpu"
+    import subprocess
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()

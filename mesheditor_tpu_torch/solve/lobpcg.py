@@ -76,14 +76,17 @@ def _small_pencil_path(ops, nev: int, p: int, sigma: float, callback) -> LobpcgR
     n = ops.n_dofs
     k, m = _pencil_csr(ops.whole())
     p = min(p, n - 1)
+    # A fixed start vector: ARPACK's own comes from a process-wide generator, so the answer
+    # (its last bits, the modes' signs) would follow the shift-invert solves run before it.
+    v0 = np.random.default_rng(0).uniform(-1.0, 1.0, n)
     try:
-        vals, vecs = spla.eigsh(k, k=p, M=m, sigma=sigma, which="LM")
+        vals, vecs = spla.eigsh(k, k=p, M=m, sigma=sigma, which="LM", v0=v0)
     except (RuntimeError, ValueError, spla.ArpackError):
         vals, vecs = np.zeros(0), np.zeros((n, 0))
     order = np.argsort(vals)
     vals = vals[order][:nev]
     vecs = torch.as_tensor(vecs[:, order][:, :nev], device=ops.device)
-    if ops.tp is not None:  # ARPACK's start differs between processes: take the first rank's
+    if ops.tp is not None:  # threaded BLAS may part the ranks' last bits: take the first rank's
         vals = ops.tp.agree(torch.as_tensor(vals, device=ops.device)).cpu().numpy()
         vecs = ops.tp.agree(vecs)
     if vals.size == 0:

@@ -47,7 +47,9 @@ def test_imports_with_jax_blocked():
         " 'render.debug_draw', 'render.record', 'io.gltf', 'io.project', 'io.realimpact',"
         " 'io.realimpact_harness', 'scene.actions', 'scene.field_edit', 'scene.log',"
         " 'scene.session', 'scene.snapshot', 'scene.timeline', 'app', 'app.viewer', 'app.page',"
-        " 'viz', 'parallel', 'parallel.sharding', 'parallel.launch', 'parallel.dryrun']\n"
+        " 'viz', 'parallel', 'parallel.sharding', 'parallel.launch', 'parallel.dryrun',"
+        " 'bench', 'scripts', 'scripts.render_bench', 'scripts.edit_loop_bench',"
+        " 'scripts.cdt_bench', 'scripts.realimpact_batch']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
