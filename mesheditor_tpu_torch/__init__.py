@@ -25,19 +25,23 @@ from .types import (  # noqa: E402
     AcousticMaterialProperties,
     MassProperties,
     ModalModes,
+    ModalSolveSettings,
+    ModalSoundControls,
     SolverConfig,
     SolveProfile,
     TetMesh,
 )
 from .materials import ACOUSTIC_MATERIALS, find_material  # noqa: E402
 from .solve.mesh2modes import ModalResult, SolveReuse, mesh2modes  # noqa: E402
-from .solve.postprocess import postprocess_modes  # noqa: E402
+from .solve.postprocess import postprocess_modes, rescale_modes  # noqa: E402
 
 __all__ = [
     "AcousticMaterial",
     "AcousticMaterialProperties",
     "MassProperties",
     "ModalModes",
+    "ModalSolveSettings",
+    "ModalSoundControls",
     "SolverConfig",
     "SolveProfile",
     "TetMesh",
@@ -47,4 +51,5 @@ __all__ = [
     "ModalResult",
     "SolveReuse",
     "postprocess_modes",
+    "rescale_modes",
 ]

@@ -1,0 +1,101 @@
+"""The device eigensolver against scipy's shift-invert on a small bar (counterpart of
+scripts/check_eigensolver.py): the port's `lobpcg_pencil` with the AMG preconditioner on
+--device, always through the device engine (small_n=0), beside scipy's `eigsh` on the same
+pencil, with the largest relative frequency error over the audible modes.
+
+Usage: python -m mesheditor_tpu_torch.scripts.check_eigensolver [nx ny nz [nev [inner]]]
+       [--device cuda|cpu]
+Exits 1 when the engine returns no eigenpair.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+
+
+def check(res=(8, 2, 2), nev=20, inner=24, device="cuda"):
+    """Solve the 0.3 x 0.05 x 0.05 m bar at `res` cells both ways. Returns a dict with
+    the two frequency lists (audible modes), the largest relative error, the engine's
+    iterations, its panel applications and the two walls; None for the engine's side when
+    it returned nothing."""
+    import scipy.sparse.linalg as spla
+
+    from .._device import card_label, resolve_device
+    from ..fem import (assemble_element_matrices, build_quad_mesh, filter_degenerate,
+                       pencil_diagonals)
+    from ..mesh import bar_tets
+    from ..solve.amg import build_amg
+    from ..solve.lobpcg import _pencil_csr, lobpcg_pencil
+    from ..types import AcousticMaterialProperties
+
+    device = resolve_device(device)
+    mesh = bar_tets(0.3, 0.05, 0.05, *res)
+    mat = AcousticMaterialProperties(1000, 1e7, 0.0)
+    kept = filter_degenerate(mesh.points, mesh.tets)
+    quad = build_quad_mesh(kept, mesh.points.shape[0])
+    ops = assemble_element_matrices(mesh.points, kept, mat, quad, device=device)
+    n = ops.n_dofs
+    print(f"tets={kept.shape[0]} quad_nodes={quad.node_count} n_dofs={n} on "
+          f"{card_label(device)}", flush=True)
+
+    k, m = _pencil_csr(ops)
+    sigma = -((2 * np.pi * 20.0) ** 2)
+    t0 = time.perf_counter()
+    v0 = np.random.default_rng(0).uniform(-1.0, 1.0, n)
+    vals_ref = np.sort(spla.eigsh(k, k=nev, M=m, sigma=sigma, which="LM", v0=v0,
+                                  return_eigenvectors=False))
+    scipy_s = time.perf_counter() - t0
+    print(f"scipy eigsh: {scipy_s:.2f}s", flush=True)
+
+    kd, md = pencil_diagonals(ops)
+    pre = build_amg(mesh.points, kept, quad, ops, kd, md, sigma)
+    t0 = time.perf_counter()
+    res_ = lobpcg_pencil(ops, nev, sigma=sigma, precond=pre, tol=1e-8, max_iters=200,
+                         inner_iters=inner, small_n=0)
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    engine_s = time.perf_counter() - t0
+    print(f"lobpcg: {engine_s:.2f}s iters={res_.iterations} ops={res_.op_applications}",
+          flush=True)
+    f_ref = np.sqrt(np.maximum(vals_ref, 0)) / (2 * np.pi)
+    audible = f_ref > 20
+    out = {"n_dofs": n, "scipy_s": scipy_s, "engine_s": engine_s,
+           "iterations": res_.iterations, "op_applications": res_.op_applications,
+           "ref_hz": f_ref[audible].tolist(), "got_hz": None, "max_rel_err": None}
+    if res_.eigenvalues.size == 0:
+        return out
+    lam = res_.eigenvalues
+    f_got = np.sqrt(np.maximum(lam, 0)) / (2 * np.pi)
+    rel = np.abs(f_got - f_ref) / np.maximum(f_ref, 1e-9)
+    out.update(got_hz=f_got[audible].tolist(), max_rel_err=float(rel[audible].max()))
+    print("freqs ref:", np.round(f_ref[audible][:10], 2))
+    print("freqs got:", np.round(f_got[audible][:10], 2))
+    print(f"max rel freq err (audible): {out['max_rel_err']:.2e}")
+    print(f"rigid eigenvalues got: {lam[:6]}", flush=True)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("sizes", nargs="*", type=int, help="nx ny nz [nev [inner]]")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    s = args.sizes
+    res = tuple(s[:3]) if len(s) >= 3 else (8, 2, 2)
+    nev = s[3] if len(s) > 3 else 20
+    inner = s[4] if len(s) > 4 else 24
+    out = check(res, nev, inner, args.device)
+    if out["got_hz"] is None:
+        print("LOBPCG FAILED to converge")
+        sys.exit(1)
+    return out
+
+
+if __name__ == "__main__":
+    main()

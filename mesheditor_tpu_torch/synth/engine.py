@@ -40,8 +40,7 @@ from .._device import resolve_device
 from ..types import ModalModes
 from .bank import (VOICE_F32_COLS, VOICE_I32_COLS, BankParams, BankState, ImpactTable,
                    TrackPool, VoiceTable, apply_voice_state, build_bank, tune_object)
-from .coupled import render_block_coupled
-from .impact import render_block_impacts
+from .render import render_block
 from .tracks import TRACK_SAMPLES, RoughnessTrack
 
 # A voice this long without a fresh contact report ends itself
@@ -351,19 +350,15 @@ class ModalSynth:
         through the coupled render, a voice-free one through the impact render."""
         self._drain_events()
         self._adopt_voices()
+        per_obj = 0
         if self._voice_ids:
             rows = list(self._voice_ids.values())
             per_obj = int(np.bincount(self._voice_i32[rows, 0]).max())
-            self.state, self.impacts, self.voices, out = render_block_coupled(
-                self.params, self.state, self.impacts, self.voices, self.pool, num_samples,
-                self.click_gain, self.sustain_level, self.coupling,
-                self._max_impacts_per_object, per_obj, self.shard,
-            )
-        else:
-            self.state, self.impacts, out = render_block_impacts(
-                self.params, self.state, self.impacts, num_samples, self.click_gain,
-                self._max_impacts_per_object, self.shard,
-            )
+        self.state, self.impacts, self.voices, out = render_block(
+            self.params, self.state, self.impacts, self.voices, self.pool, num_samples,
+            self.click_gain, self.sustain_level, self.coupling,
+            n_slots=self._max_impacts_per_object, n_per_obj=per_obj, shard=self.shard,
+        )
         self._idle_samples += num_samples
         return out
 

@@ -217,3 +217,42 @@ def finish_block(params: BankParams, impacts: ImpactTable, z_re: torch.Tensor,
     silent = (energy * params.out_gain**2 < SILENT_ENERGY) & (has_excite == 0)
     keep = (~silent)[:, None].to(torch.float32)
     return BankState(z_re=z_re * keep, z_im=z_im * keep), impacts, voices
+
+
+def render_block(params: BankParams, state: BankState, impacts: ImpactTable,
+                 voices: VoiceTable, pool: TrackPool, num_samples: int,
+                 click_gain: float = 1.0, sustain_level: float = 1.0, coupling: float = 1.0,
+                 debug: bool = False, *, n_slots: int | None = None,
+                 n_per_obj: int | None = None, shard=None):
+    """Advance the whole scene `num_samples` samples (reference: synth/render.py
+    `render_block`). Returns (state, impacts, voices, out), `out` the mono mix
+    (num_samples,) float32.
+
+    A block with a live voice goes through the coupled render (synth/coupled.py), a
+    voice-free block through the impact render (synth/impact.py), which leaves `voices` as
+    it was; `ModalSynth.render` comes here for every block. `n_slots` bounds the live
+    impacts per object and `n_per_obj` the live voices per object; None counts them from
+    the tables (a device sync on a CUDA table). `shard` is as in those renders. The
+    reference's `debug` traces are per-sample values that the kernels keep in registers,
+    so `debug=True` raises."""
+    from .coupled import render_block_coupled
+    from .impact import render_block_impacts
+
+    if debug:
+        raise NotImplementedError("render_block: the per-sample debug traces are not "
+                                  "kept by the kernels")
+    n_obj = params.coeff_re.shape[0]
+    if n_slots is None:
+        obj = impacts.obj[impacts.active].long()
+        n_slots = int(torch.bincount(obj, minlength=1).max()) if obj.numel() else 0
+    if n_per_obj is None:
+        live = voices.active & (voices.obj >= 0) & (voices.obj < n_obj)
+        obj = voices.obj[live].long()
+        n_per_obj = int(torch.bincount(obj, minlength=1).max()) if obj.numel() else 0
+    if n_per_obj:
+        return render_block_coupled(params, state, impacts, voices, pool, num_samples,
+                                    click_gain, sustain_level, coupling, n_slots, n_per_obj,
+                                    shard)
+    state, impacts, out = render_block_impacts(params, state, impacts, num_samples,
+                                               click_gain, n_slots, shard)
+    return state, impacts, voices, out

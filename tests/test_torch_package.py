@@ -49,7 +49,9 @@ def test_imports_with_jax_blocked():
         " 'scene.session', 'scene.snapshot', 'scene.timeline', 'app', 'app.viewer', 'app.page',"
         " 'viz', 'parallel', 'parallel.sharding', 'parallel.launch', 'parallel.dryrun',"
         " 'bench', 'scripts', 'scripts.render_bench', 'scripts.edit_loop_bench',"
-        " 'scripts.cdt_bench', 'scripts.realimpact_batch']\n"
+        " 'scripts.cdt_bench', 'scripts.realimpact_batch', 'scripts.tet_corpus_snapshot',"
+        " 'scripts.make_realimpact_double', 'scripts.check_eigensolver',"
+        " 'scripts.realimpact_harness']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"
@@ -111,26 +113,44 @@ def test_render_layer_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("sub,not_ported_yet", [
-    ("mesh", set()),
-    ("physics", set()),
-    ("render", set()),
-    ("io", set()),
-    ("scene", set()),
-    ("app", set()),
-    ("parallel", set()),
+# Names only the port exports, each with its reason. The reference's fem/cluster.py
+# (macro clustering) and its pallas_* modules are TPU-forced designs that the port does not
+# carry (ROADMAP Queue 1 item 2); none of their names is in the reference's `__all__`, so
+# no reference name is excepted.
+PORT_ONLY = {
+    # The matrix-free shifted operator that the float64 solve applies on the card, where
+    # the reference bakes a bf16 operator with fem/cluster.py.
+    "fem": {"ShiftedElementOperator"},
+    # The two kernels' wrappers and the block renders around them, the routes that
+    # synth.render_block takes; tune_coeffs is the bank's retune without a rebuild.
+    "synth": {"render_block_impacts", "render_block_coupled", "resonate", "resonate_coupled",
+              "tune_coeffs"},
+}
+
+
+@pytest.mark.parametrize("sub", [
+    "", "fem", "solve", "synth", "mesh", "physics", "render", "io", "scene", "app", "parallel",
 ])
-def test_public_names_match_the_reference_package(sub, not_ported_yet):
-    """Each ported subpackage exports what the reference's `__init__` exports, less the
-    names of modules that are still to be ported, and every name resolves."""
+def test_public_names_match_the_reference_package(sub):
+    """Each subpackage (and the root, "") exports what the reference's `__init__` exports,
+    plus the port-only names listed with their reasons, and every shared name resolves to an
+    object of the reference's kind (a function for a function, jitted or not)."""
     import importlib
 
-    port = importlib.import_module(f"mesheditor_tpu_torch.{sub}")
-    ref = importlib.import_module(f"mesheditor_tpu.{sub}")
-    assert set(port.__all__) == set(ref.__all__) - not_ported_yet
-    assert not_ported_yet <= set(ref.__all__)
+    port = importlib.import_module(".".join(filter(None, ["mesheditor_tpu_torch", sub])))
+    ref = importlib.import_module(".".join(filter(None, ["mesheditor_tpu", sub])))
+    extra = PORT_ONLY.get(sub, set())
+    assert set(port.__all__) == set(ref.__all__) | extra
+    assert not extra & set(ref.__all__)
     for name in port.__all__:
-        assert type(getattr(port, name)) is type(getattr(ref, name)), name
+        assert getattr(port, name) is not None, name
+    for name in ref.__all__:
+        mine, theirs = getattr(port, name), getattr(ref, name)
+        if callable(theirs) and not isinstance(theirs, type):
+            # A jitted function there (jax.jit's PjitFunction) is a plain function here.
+            assert callable(mine) and not isinstance(mine, type), name
+        else:
+            assert type(mine) is type(theirs), name
 
 
 def test_viewer_and_viz_import_without_jax_or_matplotlib():

@@ -30,7 +30,7 @@ from mesheditor_tpu_torch.physics import PhysicsWorld, scene_build
 from mesheditor_tpu_torch.scene import audio_sync
 from mesheditor_tpu_torch.scene import components as pc
 from mesheditor_tpu_torch.solve import lobpcg
-from mesheditor_tpu_torch.synth import coupled, engine, impact
+from mesheditor_tpu_torch.synth import coupled, impact
 
 HOST_PATH_RTOL = 5e-8  # both packages answer these small pencils by host shift-invert
 # ModalModes stores float32: two float64 answers inside HOST_PATH_RTOL may round to
@@ -329,11 +329,12 @@ def test_simulate_scene_matches_reference(tmp_path, monkeypatch):
     ref_sync.SceneAudio(ref, tmp_path, tet_resolution=6).reconcile()  # solve once, store
     reg = carry(ref)
     blocks = {"coupled": 0, "impacts": 0}
-    for name, key in (("render_block_coupled", "coupled"), ("render_block_impacts", "impacts")):
-        def counted(*args, _inner=getattr(engine, name), _key=key, **kwargs):
+    for module, name, key in ((coupled, "render_block_coupled", "coupled"),
+                              (impact, "render_block_impacts", "impacts")):
+        def counted(*args, _inner=getattr(module, name), _key=key, **kwargs):
             blocks[_key] += 1
             return _inner(*args, **kwargs)
-        monkeypatch.setattr(engine, name, counted)
+        monkeypatch.setattr(module, name, counted)
     launches = (impact.LAUNCHES, coupled.LAUNCHES)
     solves = lobpcg.HOST_SOLVES + lobpcg.DEVICE_SOLVES
     kw = dict(seconds=0.4, sample_rate=96_000.0, tet_resolution=6)

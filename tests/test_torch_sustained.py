@@ -492,3 +492,41 @@ def test_coupled_kernel_two_s_equals_s_plus_s_on_card(k, per_obj):
     assert torch.equal(s12.z_re, s2.z_re) and torch.equal(s12.z_im, s2.z_im)
     assert torch.equal(v12.relief_mean, v2.relief_mean)
     assert torch.equal(v12.penetration, v2.penetration)
+
+
+@pytest.mark.parametrize("voiced", [False, True])
+def test_render_block_is_the_engine_route(voiced):
+    """synth.render_block, called on a synth's tables with the per-object counts left to
+    it, gives ModalSynth.render's block bit for bit: the coupled render with a live voice,
+    the impact render (voices untouched) without."""
+    from mesheditor_tpu_torch.synth import render_block
+
+    rng = np.random.default_rng(4)
+    freqs, t60s = np.linspace(150, 6000, 16), np.linspace(0.8, 0.1, 16)
+    shapes = (rng.standard_normal((3, 16, 3)) * 0.02).astype(np.float32)
+    pkg = types.SimpleNamespace(SustainedVoice=SustainedVoice,
+                                ContactTrackSpec=ContactTrackSpec)
+    synths = [ModalSynth([ModalModes(freqs, t60s, shapes)] * 2, max_impacts=8, max_voices=2,
+                         device="cpu") for _ in range(2)]
+    for synth in synths:
+        slot = synth.adopt_track(5, lambda: synthesize_roughness(2e-4, -2.0, 1e-6))
+        synth.strike(0, 1, (0.3, 0.1, 0.05), 0.002, accel_amp=0.001)
+        synth.strike(0, 2, (0.1, 0.2, 0.05), 0.001)
+        if voiced:
+            synth.publish_voices([_voice(pkg, 1, 1, slot)])
+    a = synths[0].render(512)
+    b = synths[1]
+    b._drain_events()
+    b._adopt_voices()
+    voices_before = b.voices
+    state, impacts, voices, out = render_block(b.params, b.state, b.impacts, b.voices, b.pool,
+                                               512, b.click_gain, b.sustain_level, b.coupling)
+    assert torch.equal(out, a)
+    assert torch.equal(state.z_re, synths[0].state.z_re)
+    assert torch.equal(state.z_im, synths[0].state.z_im)
+    assert torch.equal(impacts.age, synths[0].impacts.age)
+    assert (voices is voices_before) is not voiced
+    if voiced:
+        assert torch.equal(voices.relief_mean, synths[0].voices.relief_mean)
+    with pytest.raises(NotImplementedError):
+        render_block(b.params, b.state, b.impacts, b.voices, b.pool, 512, debug=True)
