@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels | --scene | --render | --files | --viewer | --multichip |
-                           --bench | --scans]
+                           --bench | --debug | --scans]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
@@ -16,7 +16,8 @@ commands on it, a RealImpact scan compared with its render) and the interactive 
 (the edit command's repaint, picks, gizmo and strike-to-audio, in process and as a
 server), the measurement surface (the `bench` command and the bench tools) and the
 scanned-object regime (the mesher's snapshot, thin shells and bars against their oracles,
-the RealImpact harness on a scan double) — after
+the RealImpact harness on a scan double) and the debugging surface (render_block's
+per-sample traces, the eigensolver's per-iteration trace, diag_cdt_solve) — after
 building the CUDA kernels from csrc/ and the tet mesher from native/tetmesher.cpp and
 checking each kernel against its plain PyTorch version on the card. Phases, in order (any
 failure exits non-zero before the final line):
@@ -161,12 +162,30 @@ failure exits non-zero before the final line):
      strike's blocks within 2e-5 x peak of the plain version on host copies of their
      arguments, 10 wavs that read back; the solve's dofs, iterations, path and wall and
      the process wall are printed;
+  o. debug: the JAX package's debugging surface. o1: the first 3 blocks of 512 of the
+     sustained second (phase c's scene) rendered by synth.render_block twice on the same
+     arguments: debug=False (the coupled kernel, once a block) and debug=True (the plain
+     recurrence with its per-sample traces, on the card; it launches nothing). The debug
+     mix, state and tables are held to the kernel route's at phase a's tolerances, the
+     traces to their invariants (rm_t's and pen_t's last rows equal rm_out and pen_out bit
+     for bit, relief_t equals relief transposed, every entry finite), and phase b's
+     resting contact renders exactly 0.0 on both routes; both routes' walls a block are
+     printed. o2: the bench box's pencil solved by lobpcg_pencil with the eigensolver's
+     trace off and on: one `[ortho]` line an iteration, and under
+     torch.use_deterministic_algorithms (the card's element apply sums with atomics in no
+     fixed order, so any two solves differ in their last bits; that pair is printed too)
+     bit-identical eigenvalues and vectors; the trace's cost as a wall delta. o3: in phase
+     n, the 2.5%-wall bowl (and with --scans the noisy scanned bowl) solved with the trace
+     on: its first and last five lines and the settled count where it stopped. o4: `python
+     -m mesheditor_tpu_torch.scripts.diag_cdt_solve 2` as a process: exit 0, each run
+     51,402 dofs, f1 within 1e-4 of 5565.28 Hz, one `[ortho]` line an iteration; each run's
+     wall, iterations and f1;
   d. timings and the whole script's wall.
 
 The line before the last is the card's name and power limit; before it, one JSON line
-with each kernel's main-path launches, its launches in phases g, j, k, l, m and n, parity,
-times and bound (and its times at render_bench's widest shapes). The last line is
-{"ok": true, ...}.
+with each kernel's main-path launches, its launches in phases g, j, k, l, m, n and o (o1's
+kernel route), parity, times and bound (and its times at render_bench's widest shapes).
+The last line is {"ok": true, ...}.
 
 --kernels runs phases 1-3 and a only (the kernels against their plain versions, and their
 times) and ends with "kernels: ok" instead. --scene runs phases 1-2 and e-h only and ends
@@ -174,7 +193,9 @@ with "scene: ok". --render runs phases 1 and i only and ends with "render: ok". 
 runs phases 1-2 and j only (solving the falling scene into a temporary store first) and
 ends with "files: ok". --viewer runs phases 1-2 and k only and ends with "viewer: ok".
 --multichip runs phases 1-2 and l only (solving the box unsharded first) and ends with
-"multichip: ok". --bench runs phases 1-2 and m only and ends with "bench: ok". --scans
+"multichip: ok". --bench runs phases 1-2 and m only and ends with "bench: ok". --debug
+runs phases 1-2 and o1, o2 and o4 only (solving the box first) and ends with "debug: ok".
+--scans
 runs phases 1-2 and n only, with the ellipsoid shell and the noisy scanned bowl (the JAX
 file's other slow shells) solved after n4, and ends with "scans: ok".
 """
@@ -2988,10 +3009,48 @@ def start_shell_oracles(shells, tmp: Path) -> list:
     return cases
 
 
+@contextlib.contextmanager
+def eig_trace(on: bool = True):
+    """While open and `on`, the device eigensolver's per-iteration trace is switched on
+    (MESHEDITOR_TPU_DEBUG_EIG) and taken off standard output: yields the list its
+    `[ortho]` lines land in; any other line printed meanwhile is logged as it was."""
+    import io
+
+    lines = []
+    if not on:
+        yield lines
+        return
+    env = os.environ.get("MESHEDITOR_TPU_DEBUG_EIG")
+    os.environ["MESHEDITOR_TPU_DEBUG_EIG"] = "1"
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            yield lines
+    finally:
+        if env is None:
+            del os.environ["MESHEDITOR_TPU_DEBUG_EIG"]
+        else:
+            os.environ["MESHEDITOR_TPU_DEBUG_EIG"] = env
+        for line in buf.getvalue().splitlines():
+            (lines.append if line.startswith("[ortho]") else log)(line)
+
+
+def trace_summary(lines: list) -> dict:
+    """The first and last five `[ortho]` lines of one solve and the settled count of its
+    last iteration ("settled/nev"): where a solve that gives up stood."""
+    last = lines[-1].split("settled=")[1].split()[0] if lines else None
+    return {"lines": len(lines), "first": lines[:5], "last": lines[-5:], "settled_last": last}
+
+
+TRACED_SHELLS = ("bowl 2.5% wall", "noisy scanned bowl")  # o3: the thin walls that give up
+
+
 def shells_check(device, card: str, cases) -> list:
     """n2: each thin shell solved on `device` at tests/test_thin_shell_parity.py's
     settings, its lowest modes within 0.1% of its scipy oracle (start_shell_oracles).
-    Returns one row per shell; each is printed before it is held to the bar."""
+    Returns one row per shell; each is printed before it is held to the bar. The shells of
+    TRACED_SHELLS are solved with the eigensolver's trace on (phase o3): its first and last
+    five lines and the settled count where it stopped are printed and kept in the row."""
     from mesheditor_tpu_torch import SolverConfig, mesh2modes
     from mesheditor_tpu_torch.materials import CERAMIC
 
@@ -3001,8 +3060,16 @@ def shells_check(device, card: str, cases) -> list:
         excite = tm.points[:: max(tm.points.shape[0] // 4, 1)][:4]
         before = solve_paths()
         t0 = time.perf_counter()
-        res = mesh2modes(tm, CERAMIC.properties, excite, config=cfg, device=device)
+        with eig_trace(name in TRACED_SHELLS) as lines:
+            res = mesh2modes(tm, CERAMIC.properties, excite, config=cfg, device=device)
         solve_s = time.perf_counter() - t0
+        trace = trace_summary(lines) if name in TRACED_SHELLS else None
+        if trace:
+            for line in trace["first"] + ["..."] + trace["last"]:
+                log(f"[debug] o3 {name} | {line}")
+            log(f"[debug] o3 {name}: {trace['lines']} [ortho] lines, settled "
+                f"{trace['settled_last']} at the last ({res.profile.restarts} iterations in "
+                f"all, {solve_path(before)} answered, {res.modes.num_modes} modes; {card})")
         got = np.asarray(res.modes.freqs)
         k, rel, oracle_s = 0, float("inf"), float("nan")
         if got.size:  # a solve that returned nothing is reported without its oracle
@@ -3019,7 +3086,7 @@ def shells_check(device, card: str, cases) -> list:
                "iterations": res.profile.restarts, "path": solve_path(before),
                "modes": res.modes.num_modes, "f1_hz": float(got[0]) if got.size else 0.0,
                "max_rel_err": rel, "solve_s": solve_s, "oracle_s": oracle_s,
-               "stages": res.profile.report()}
+               "stages": res.profile.report(), "trace": trace}
         log(f"[scans] {name}: {row['tets']} tets, {row['dofs']} dofs, answered by "
             f"{row['path']} in {row['iterations']} iterations, {row['modes']} modes, f1 "
             f"{row['f1_hz']:.2f} Hz, lowest {k} within {rel:.3e} of scipy; solve "
@@ -3204,6 +3271,228 @@ def scans_phase(device, card: str, full: bool = False,
     return {"snapshot_s": snap_s, "shells": rows, "bars": bars, "harness": harness}
 
 
+# ---- phase o: the debugging surface ----
+
+
+@contextlib.contextmanager
+def kernel_and_debug_routes():
+    """While open, every block a ModalSynth renders goes through synth.render_block twice
+    on the same arguments: the engine's own call (debug=False, the kernel route; the synth
+    keeps its result) and debug=True (the plain recurrence with its traces, on the same
+    device). The debug route's mix, state and tables are held to the kernel route's at
+    coupled_parity's tolerances on host copies, its traces to their invariants (rm_t's and
+    pen_t's last rows are the carries out bit for bit, relief_t is the relief transposed,
+    every entry finite). Yields a list with one record a block: both routes' walls (host
+    clock, each ending in a sync), the kernel route's launches, the mix peaks and the
+    error."""
+    import torch
+
+    from mesheditor_tpu_torch.synth import coupled, engine, impact
+
+    real = engine.render_block
+    records = []
+
+    def render(*args, **kw):
+        counts = coupled.LAUNCHES, impact.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real(*args, **kw)
+        torch.cuda.synchronize()
+        kernel_ms = (time.perf_counter() - t0) * 1e3
+        launched = coupled.LAUNCHES - counts[0], impact.LAUNCHES - counts[1]
+        t0 = time.perf_counter()
+        *traced, dbg = real(*args, debug=True, **kw)
+        torch.cuda.synchronize()
+        debug_ms = (time.perf_counter() - t0) * 1e3
+        assert (coupled.LAUNCHES - counts[0], impact.LAUNCHES - counts[1]) == launched, \
+            "the debug route launched a kernel"
+        name = f"debug block {len(records)}"
+        want = [_on_host(t) for t in traced[:3]] + [traced[3].cpu()]
+        z_peak = float(max(want[0].z_re.abs().max(), want[0].z_im.abs().max()))
+        err, peak = coupled_parity(name, got, want, state_scale=max(
+            float(want[3].abs().max()), z_peak))
+        assert torch.equal(dbg["rm_t"][-1], dbg["rm_out"]), f"{name}: rm_t[-1] != rm_out"
+        assert torch.equal(dbg["pen_t"][-1], dbg["pen_out"]), f"{name}: pen_t[-1] != pen_out"
+        assert torch.equal(dbg["relief_t"], dbg["relief"].T), f"{name}: relief_t != relief.T"
+        assert all(bool(torch.isfinite(v).all()) for v in dbg.values()), f"{name}: not finite"
+        assert all(v.device == traced[3].device for v in dbg.values()), f"{name}: device"
+        records.append({"kernel_ms": kernel_ms, "debug_ms": debug_ms,
+                        "coupled_launches": launched[0], "impact_launches": launched[1],
+                        "peak": peak, "debug_peak": float(traced[3].abs().max()),
+                        "max_abs_err": err,
+                        "force_peak": float(dbg["force_t"].max()) if dbg["force_t"].numel()
+                        else 0.0})
+        return got
+
+    engine.render_block = render
+    try:
+        yield records
+    finally:
+        engine.render_block = real
+
+
+def debug_render_check(result, device, card: str, blocks: int = 3, frames: int = 512) -> dict:
+    """o1: the first `blocks` blocks of the sustained second (64 objects of the solved box,
+    16 bridge voices) through both routes of render_block (kernel_and_debug_routes): every
+    block launches the coupled kernel once on its kernel route and nothing on its debug
+    route. Then rest_silence's resting contact through both routes: both mixes exactly
+    0.0. Returns the walls, launches and errors."""
+    from mesheditor_tpu_torch.synth import coupled
+
+    synth, voices = sustained_scene(result, device)
+    with kernel_and_debug_routes() as records:
+        for _ in range(blocks):
+            synth.publish_voices(voices)
+            synth.render(frames)
+    launches = sum(r["coupled_launches"] for r in records)
+    assert launches == blocks and all(r["impact_launches"] == 0 for r in records), records
+    rel = max(r["max_abs_err"] / max(r["peak"], 1e-30) for r in records)
+    for i, r in enumerate(records):
+        log(f"[debug] o1 block {i}: kernel route {r['kernel_ms']:.3f} ms, debug route "
+            f"{r['debug_ms']:.3f} ms (host clock, each to a sync; {card}); mix peak "
+            f"{r['peak']:.4e}, |debug - kernel| {r['max_abs_err']:.3e}, largest traced force "
+            f"{r['force_peak']:.4e} N")
+    before = coupled.LAUNCHES
+    with kernel_and_debug_routes() as rest:
+        peak = rest_silence(device)
+    assert coupled.LAUNCHES == before + 8, "rest scene did not go through the kernel"
+    assert peak == 0.0 and all(r["debug_peak"] == 0.0 for r in rest), \
+        f"resting contact not silent: kernel {peak!r}, debug {[r['debug_peak'] for r in rest]}"
+    log(f"[debug] o1: {blocks} blocks of {frames} (64 objects, 16 voices) through both routes, "
+        f"debug within {rel:.3e} x peak of the kernel route (coupled_parity), traces "
+        f"consistent; rest silence exactly 0.0 on both routes (8 blocks); kernel route "
+        f"median {np.median([r['kernel_ms'] for r in records]):.3f} ms a block, debug route "
+        f"{np.median([r['debug_ms'] for r in records]):.3f} ms ({card})")
+    return {"launches": launches, "impact_launches": 0, "max_rel_err": rel,
+            "kernel_ms": [r["kernel_ms"] for r in records],
+            "debug_ms": [r["debug_ms"] for r in records]}
+
+
+def debug_solve_check(device, card: str) -> dict:
+    """o2: the bench box's pencil (assembled and preconditioned once) solved by
+    lobpcg_pencil with the trace off, then on. The card's element apply sums with atomics
+    in no fixed order, so two solves differ in their last bits whatever the trace (that
+    pair is printed); the pair held bit for bit runs under
+    torch.use_deterministic_algorithms, where they must give the same eigenvalues and
+    vectors, with one `[ortho]` line an iteration. The trace's cost is each pair's wall
+    delta."""
+    import torch
+
+    from mesheditor_tpu_torch import bench
+    from mesheditor_tpu_torch.fem import (assemble_element_matrices, build_quad_mesh,
+                                          filter_degenerate, pencil_diagonals)
+    from mesheditor_tpu_torch.materials import CERAMIC
+    from mesheditor_tpu_torch.solve.amg import build_amg
+    from mesheditor_tpu_torch.solve.lobpcg import lobpcg_pencil
+
+    mesh, cfg, _excite = bench.bench_box()
+    cfg = cfg.clamp()
+    kept = filter_degenerate(mesh.points, mesh.tets)
+    quad = build_quad_mesh(kept, mesh.points.shape[0])
+    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad, device=device)
+    sigma = -((2 * np.pi * cfg.min_mode_freq) ** 2)
+    pre = build_amg(mesh.points, kept, quad, ops, *pencil_diagonals(ops), sigma)
+    nev = min(cfg.num_fem_modes, ops.n_dofs - 1)
+
+    def solve(debug):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eig_trace(debug) as lines:
+            res = lobpcg_pencil(ops, nev, sigma=sigma, precond=pre, guard=cfg.guard,
+                                tol=cfg.tolerance, max_iters=cfg.max_restarts,
+                                inner_iters=cfg.inner_iters, small_n=cfg.small_n,
+                                host_fallback_n=cfg.host_fallback_n, debug=debug)
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, lines
+
+    def differ(a, b):
+        return (float(np.abs(a.eigenvalues - b.eigenvalues).max()),
+                float((a.eigenvectors - b.eigenvectors).abs().max()))
+
+    off, off_s, _ = solve(False)
+    on, on_s, _ = solve(True)
+    free = differ(off, on)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        d_off, d_off_s, quiet = solve(False)
+        d_on, d_on_s, lines = solve(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert not quiet, quiet[:3]
+    assert np.array_equal(d_off.eigenvalues, d_on.eigenvalues), \
+        f"trace on moved the eigenvalues by {differ(d_off, d_on)[0]:.3e}"
+    assert torch.equal(d_off.eigenvectors, d_on.eigenvectors), "trace on moved the vectors"
+    assert len(lines) == d_on.iterations == d_off.iterations > 0, (len(lines), d_on.iterations)
+    assert d_on.eigenvalues.size == nev
+    for line in lines[:2] + ["..."] + lines[-2:]:
+        log(f"[debug] o2 | {line}")
+    log(f"[debug] o2 bench box ({ops.n_dofs} dofs, {nev} pairs): as the solve runs, trace off "
+        f"{off_s:.3f} s / on {on_s:.3f} s ({on_s - off_s:+.3f} s), {off.iterations} / "
+        f"{on.iterations} iterations, apart by {free[0]:.3e} in eigenvalue and {free[1]:.3e} "
+        f"in vector entries (atomic sums); under deterministic algorithms off {d_off_s:.3f} s "
+        f"/ on {d_on_s:.3f} s ({d_on_s - d_off_s:+.3f} s), bit-identical eigenvalues and "
+        f"vectors, {len(lines)} [ortho] lines = {d_on.iterations} iterations ({card})")
+    return {"iterations": d_on.iterations, "lines": len(lines), "off_s": off_s, "on_s": on_s,
+            "deterministic_off_s": d_off_s, "deterministic_on_s": d_on_s,
+            "free_pair_differ": free}
+
+
+def diag_runs(stdout: str) -> list:
+    """diag_cdt_solve's output, one dict a run: the run line's wall, f1, iterations and
+    dofs, and the `[ortho]` lines printed before it."""
+    chunks = stdout.split("--- run ")
+    rows = []
+    for before, chunk in zip(chunks[:-1], chunks[1:]):
+        head = chunk.splitlines()[0]
+        fields = dict(f.split("=") for f in head.replace(",", "").split() if "=" in f)
+        rows.append({"wall_s": float(head.split(":")[1].split("s")[0]),
+                     "f1_hz": float(fields["f1"]), "iterations": int(fields["iterations"]),
+                     "dofs": int(fields["dofs"]),
+                     "lines": sum(line.startswith("[ortho]") for line in before.splitlines())})
+    return rows
+
+
+def diag_cdt_check(card: str, runs: int = 2) -> dict:
+    """o4: `python -m mesheditor_tpu_torch.scripts.diag_cdt_solve 2` as a process on the
+    card: exit 0; every run 51,402 dofs, f1 within 1e-4 of 5565.28 Hz, one `[ortho]` line
+    an iteration. Returns each run's wall, iterations and f1 and the process wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mesheditor_tpu_torch.scripts.diag_cdt_solve",
+                           str(runs), "--device", "cuda"], capture_output=True, text=True,
+                          timeout=600, cwd=REPO)
+    wall_s = time.perf_counter() - t0
+    assert proc.returncode == 0, f"diag_cdt_solve exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    rows = diag_runs(proc.stdout)
+    for i, row in enumerate(rows):
+        assert row["dofs"] == TORUS_DOFS, row
+        assert abs(row["f1_hz"] - TORUS_F1_HZ) / TORUS_F1_HZ < 1e-4, row
+        assert row["lines"] == row["iterations"] > 0, row
+        log(f"[debug] o4 run {i}: {row['wall_s']:.1f} s, {row['iterations']} iterations "
+            f"({row['lines']} [ortho] lines), f1 {row['f1_hz']:.2f} Hz, {row['dofs']} dofs "
+            f"({card})")
+    assert len(rows) == runs, proc.stdout[-2000:]
+    log(f"[debug] o4 diag_cdt_solve {runs}: process wall {wall_s:.1f} s ({card})")
+    return {"runs": rows, "process_s": wall_s}
+
+
+def debug_phase(device, card: str, result=None) -> dict:
+    """Phase o: o1 (render_block's two routes on phase 5's solved box, solved here when
+    None), o2 (the trace costs no bit) and o4 (the diag_cdt_solve tool); o3 runs inside
+    phase n (TRACED_SHELLS). The coupled kernel's launches in o1 are returned apart from
+    every other phase's."""
+    t_phase = time.perf_counter()
+    if result is None:
+        from mesheditor_tpu_torch import bench, mesh2modes
+        from mesheditor_tpu_torch.materials import CERAMIC
+
+        mesh, cfg, excite = bench.bench_box()
+        result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
+    out = {"o1": debug_render_check(result, device, card),
+           "o2": debug_solve_check(device, card), "o4": diag_cdt_check(card)}
+    log(f"[debug] phase o in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 def run(stack: contextlib.ExitStack) -> int:
     """The phases, as the command line picks them; temporary directories that outlive a
     phase are entered on `stack`."""
@@ -3229,6 +3518,9 @@ def run(stack: contextlib.ExitStack) -> int:
     only.add_argument("--bench", action="store_true",
                       help="only the build and the bench phase (the bench command, "
                            "render_bench, edit_loop_bench, cdt_bench, realimpact_batch)")
+    only.add_argument("--debug", action="store_true",
+                      help="only the build and the debug phase (render_block's kernel and "
+                           "debug routes, the eigensolver trace's cost, diag_cdt_solve)")
     only.add_argument("--scans", action="store_true",
                       help="only the build and the scans phase, with the noisy bowl and the "
                            "ellipsoid shell (mesher snapshot, thin shells and bars against "
@@ -3304,6 +3596,11 @@ def run(stack: contextlib.ExitStack) -> int:
         bench_phase(device, card)
         log(f"[timing] whole script {time.perf_counter() - t_start:.1f} s ({card})")
         log("bench: ok")
+        return 0
+    if args.debug:
+        debug_phase(device, card)
+        log(f"[timing] whole script {time.perf_counter() - t_start:.1f} s ({card})")
+        log("debug: ok")
         return 0
     if args.scans:
         scans_phase(device, card, full=True)
@@ -3488,6 +3785,11 @@ def run(stack: contextlib.ExitStack) -> int:
     scans = scans_phase(device, card)
 
     wall("phase n done")
+    # (o) the debugging surface: o1's kernel-route launches are counted apart (o3 ran in
+    # phase n)
+    debug = debug_phase(device, card, result)
+
+    wall("phase o done")
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
         f"{block_median:.3f} ({card})")
@@ -3518,6 +3820,7 @@ def run(stack: contextlib.ExitStack) -> int:
         "scans_launches": scans["harness"]["launches"],
         "scans_blocks_checked": scans["harness"]["checked"]["blocks"],
         "scans_max_rel_err": scans["harness"]["checked"]["max_rel_err"],
+        "debug_launches": debug["o1"]["impact_launches"],
         "max_abs_err": bench_stats["max_abs_err"],
         "ms": bench_stats["ms"], "plain_ms": bench_stats["plain_ms"],
         "bound_ms": imp_bound, "bound_by": imp_by, "library_ms": None,
@@ -3539,6 +3842,8 @@ def run(stack: contextlib.ExitStack) -> int:
         "render_bench_blocks_checked": m2["checked"]["coupled"]["blocks"],
         "render_bench_max_rel_err": m2["checked"]["coupled"]["max_rel_err"],
         "render_bench_widest": m2["widest"]["coupled"],
+        "debug_launches": debug["o1"]["launches"],
+        "debug_max_rel_err": debug["o1"]["max_rel_err"],
         "max_abs_err": c512["max_abs_err"],
         "ms": c512["ms"], "plain_ms": c512["plain_ms"],
         "bound_ms": c512["bound_ms"], "bound_by": c512["bound_by"], "library_ms": None,

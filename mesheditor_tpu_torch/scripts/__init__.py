@@ -10,6 +10,7 @@ through the public API), each run as `python -m mesheditor_tpu_torch.scripts.<na
   scored on its partials (BASELINE config 3);
 - make_realimpact_double: a synthetic RealImpact object whose recordings come from scipy;
 - check_eigensolver: the device eigensolver against scipy on a small bar;
+- diag_cdt_solve: the CDT torus solved with the eigensolver's per-iteration trace on;
 - tet_corpus_snapshot: the tet mesher's structural snapshot (host only).
 
 Each with device work runs on the card unless `--device cpu` is given, and prints the

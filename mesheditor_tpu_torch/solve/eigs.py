@@ -118,13 +118,33 @@ def _rayleigh_ritz(a: torch.Tensor, b: torch.Tensor, p_want: int):
     return theta[:p_want], linv.T @ v[:, :p_want]
 
 
+def _ritz_rel_residuals(s, ks, ms, c, theta, nev: int, sigma: float) -> torch.Tensor:
+    """Relative residuals |K x - theta M x| / (|K x| + |sigma| |M x|) of the first nev Ritz
+    pairs of the basis s (the reference's `rel`, eigs.py:_iter_stage). Reads the panels
+    and writes nothing the iteration uses."""
+    kx, mx = ks @ c[:, :nev], ms @ c[:, :nev]
+    r = kx - mx * theta[:nev]
+    return torch.linalg.norm(r, dim=0) / (torch.linalg.norm(kx, dim=0)
+                                          + abs(sigma) * torch.linalg.norm(mx, dim=0) + 1e-300)
+
+
 def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: float,
-                 tol: float, max_iters: int, inner_iters: int, callback=None):
+                 tol: float, max_iters: int, inner_iters: int, callback=None,
+                 debug: bool = False):
     """LOBPCG outer loop over the elastic (rigid-deflated) spectrum.
 
     Returns ((lam (nev,), x (n, nev), res_norm (nev,)), status, iterations, op_count)
     with status "done", or (None, status, ...) with status in {"cancel", "nan", "noconv"}.
+
+    `debug` prints one line per iteration, flushed, in the reference's format
+    (eigs.py:_check): the iteration, the settled prefix of nev, the eigenvalue at the
+    first unsettled index (the last when all settled) with its relative change, the
+    largest relative residual of the nev Ritz pairs and the wall since the previous line.
+    The residuals are computed only then, from panels the iteration does not change, so
+    the answer is the same bit for bit with the trace on or off.
     """
+    import time
+
     from .lobpcg import _cancelled, _settled_prefix
 
     p = x_seed.shape[1]
@@ -139,6 +159,7 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
     lock = 0
     lock_cap = max(p - _LOCK_STEP, 0)
     floor_rel = 1e-9
+    last_t = time.perf_counter()
 
     for it in range(1, max_iters + 1):
         x, kx, mx = s @ c, ks @ c, ms @ c
@@ -172,9 +193,16 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
         lam = theta.cpu().numpy()
         if not np.isfinite(lam[:nev]).all():
             return None, "nan", it, ops_count
-        settled, _rel, _delta, _window = _settled_prefix(lam, prev, nev, tol, sigma,
-                                                         floor_rel)
+        settled, rel_set, _delta, _window = _settled_prefix(lam, prev, nev, tol, sigma,
+                                                            floor_rel)
         prev = lam
+        if debug:
+            res_max = float(_ritz_rel_residuals(s, ks, ms, c, theta, nev, sigma).max())
+            now = time.perf_counter()
+            dt, last_t = now - last_t, now
+            j = min(settled, nev - 1)
+            print(f"[ortho] it={it} settled={settled}/{nev} lam_j={lam[j]:.6e} "
+                  f"set_rel={rel_set[j]:.2e} res_max={res_max:.2e} dt={dt:.2f}s", flush=True)
         if _cancelled(ops, callback, it, settled):
             return None, "cancel", it, ops_count
         streak = streak + 1 if settled >= nev else 0

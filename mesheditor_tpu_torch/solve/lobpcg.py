@@ -22,6 +22,7 @@ cancellation (eigs.py). So no rank can leave a collective that another still wai
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -162,12 +163,15 @@ def lobpcg_pencil(
     callback: Optional[Callable[[int, int], bool]] = None,
     small_n: int = 9000,
     host_fallback_n: int = 120_000,
+    debug: Optional[bool] = None,
 ) -> LobpcgResult:
     """Lowest `nev` eigenpairs of K x = lambda M x for element-form operators `ops`.
 
     `sigma` (negative) shifts the preconditioner pencil. `x0` (n, >=1) seeds the leading
     elastic columns (warm start). `callback(iteration, settled)` may return True to cancel,
-    which gives an empty result (the reference's JobMonitor contract)."""
+    which gives an empty result (the reference's JobMonitor contract). `debug` (default:
+    the MESHEDITOR_TPU_DEBUG_EIG env var, as in the reference) prints the device engine's
+    per-iteration `[ortho]` trace (eigs.py:ortho_lobpcg); the answer does not change."""
     global DEVICE_SOLVES
     from .amg import AmgPrecond, spectral_seed
     from .eigs import ortho_lobpcg
@@ -224,8 +228,10 @@ def lobpcg_pencil(
         cols.append(sp)
     x_e = torch.cat(cols, 1)
 
+    if debug is None:
+        debug = bool(os.environ.get("MESHEDITOR_TPU_DEBUG_EIG"))
     res, status, iters, ops_count = ortho_lobpcg(
-        ops, amat, precond, x_e, nev_e, sigma, tol, max_iters, inner_iters, callback)
+        ops, amat, precond, x_e, nev_e, sigma, tol, max_iters, inner_iters, callback, debug)
     if res is None:
         return fail(iters, ops_count, status)
     lam_e, x_vec, res_e = res

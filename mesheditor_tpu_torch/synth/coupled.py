@@ -58,10 +58,17 @@ def _group_voices(v_obj: torch.Tensor, n_obj: int, n_per_obj: int):
 
 
 def _resonate_coupled_plain(coeff_re, coeff_im, out_gain, gains4, consts, vx, force_sro,
-                            gain_rok, z_re, z_im, rm0, pen0, v_obj, order, offsets):
+                            gain_rok, z_re, z_im, rm0, pen0, v_obj, order, offsets,
+                            trace: bool = False):
     """The plain PyTorch recurrence, in the kernel's operation order (the drives are added
     after the shared update, one voice after another within an object). Returns
-    (mix (S,), z_re, z_im, rm (V,), pen (V,))."""
+    (mix (S,), z_re, z_im, rm (V,), pen (V,)).
+
+    With `trace` it also records, every sample, each voice's relief-mean and penetration
+    carries, its Hunt-Crossley force before the normal load is taken off, and the relief it
+    read, and returns them after the rest as {"rm_t", "pen_t", "force_t", "relief_t"},
+    each (S, V) on the tables' device (the reference's debug scan outputs). Rows of voices
+    not stepped hold rm0/pen0 and a force of 0. The recurrence is the same either way."""
     n_samples = vx.shape[0]
     n_slots = gain_rok.shape[0]
     dev = coeff_re.device
@@ -84,6 +91,7 @@ def _resonate_coupled_plain(coeff_re, coeff_im, out_gain, gains4, consts, vx, fo
     rm, pen = rm0[vid], pen0[vid]
     g = out_gain[:, None]
     mix = []
+    rm_rows, pen_rows, force_rows = [], [], []
     zr, zi = z_re, z_im
     for c0 in range(0, n_samples, _EXCITE_CHUNK):
         f = force_sro[c0 : c0 + _EXCITE_CHUNK]  # (C, R, O)
@@ -107,6 +115,10 @@ def _resonate_coupled_plain(coeff_re, coeff_im, out_gain, gains4, consts, vx, fo
                 pen = sep
                 drive = ((normal[:, None] * gnf + (load * slope0)[:, None] * geo0)
                          + (load * slope1)[:, None] * geo1)
+                if trace:
+                    rm_rows.append(rm)
+                    pen_rows.append(pen)
+                    force_rows.append(force)
             new_re = zr * coeff_re - zi * coeff_im + ex
             new_im = zr * coeff_im + zi * coeff_re
             for sel, objs in layers:
@@ -117,7 +129,16 @@ def _resonate_coupled_plain(coeff_re, coeff_im, out_gain, gains4, consts, vx, fo
     rm_out[vid] = rm
     pen_out[vid] = pen
     mix = torch.stack(mix) if mix else torch.zeros(0, dtype=torch.float32, device=dev)
-    return mix, zr, zi, rm_out, pen_out
+    if not trace:
+        return mix, zr, zi, rm_out, pen_out
+    rows = {"rm_t": rm0.expand(n_samples, -1).clone(),
+            "pen_t": pen0.expand(n_samples, -1).clone(),
+            "force_t": torch.zeros_like(vx[:, 0])}
+    if n_kept and n_samples:
+        for name, got in zip(rows, (rm_rows, pen_rows, force_rows)):
+            rows[name][:, vid] = torch.stack(got)
+    rows["relief_t"] = vx[:, 0].clone()
+    return mix, zr, zi, rm_out, pen_out, rows
 
 
 _PLAN_KEYS = ("path", "threads_per_cta", "modes_per_lane",

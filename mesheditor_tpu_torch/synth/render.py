@@ -232,15 +232,25 @@ def render_block(params: BankParams, state: BankState, impacts: ImpactTable,
     voice-free block through the impact render (synth/impact.py), which leaves `voices` as
     it was; `ModalSynth.render` comes here for every block. `n_slots` bounds the live
     impacts per object and `n_per_obj` the live voices per object; None counts them from
-    the tables (a device sync on a CUDA table). `shard` is as in those renders. The
-    reference's `debug` traces are per-sample values that the kernels keep in registers,
-    so `debug=True` raises."""
+    the tables (a device sync on a CUDA table). `shard` is as in those renders.
+
+    `debug=True` returns (state, impacts, voices, out, dbg) with the reference's per-sample
+    traces: every block, voiced or not, goes through the coupled precompute and the plain
+    recurrence (`coupled._resonate_coupled_plain`) on the tables' device, as the
+    reference's debug output comes from its scan and not from its kernels. `dbg` holds the
+    block precompute, "relief", "slope0", "slope1" (V, S), "heights" (V, 4, S) and "rm0"
+    (V,), the carries after the block, "rm_out" and "pen_out" (V,), and one row a sample
+    of "rm_t", "pen_t", "force_t" (the Hunt-Crossley force before the normal load is taken
+    off) and "relief_t", each (S, V) float32. Rows of voices that are not stepped (inactive
+    or out of range) keep their carries in "rm_t"/"pen_t" and a force of 0, where the
+    reference steps every row. A voice-free block leaves `voices` as it was, as without
+    `debug`. A sharded bank (`shard`) has no debug route."""
     from .coupled import render_block_coupled
     from .impact import render_block_impacts
 
-    if debug:
-        raise NotImplementedError("render_block: the per-sample debug traces are not "
-                                  "kept by the kernels")
+    if debug and shard is not None:
+        raise ValueError("render_block: debug=True traces one process's whole tables; "
+                         "it does not take shard")
     n_obj = params.coeff_re.shape[0]
     if n_slots is None:
         obj = impacts.obj[impacts.active].long()
@@ -249,6 +259,9 @@ def render_block(params: BankParams, state: BankState, impacts: ImpactTable,
         live = voices.active & (voices.obj >= 0) & (voices.obj < n_obj)
         obj = voices.obj[live].long()
         n_per_obj = int(torch.bincount(obj, minlength=1).max()) if obj.numel() else 0
+    if debug:
+        return _render_block_traced(params, state, impacts, voices, pool, num_samples,
+                                    click_gain, sustain_level, coupling, n_slots, n_per_obj)
     if n_per_obj:
         return render_block_coupled(params, state, impacts, voices, pool, num_samples,
                                     click_gain, sustain_level, coupling, n_slots, n_per_obj,
@@ -256,3 +269,25 @@ def render_block(params: BankParams, state: BankState, impacts: ImpactTable,
     state, impacts, out = render_block_impacts(params, state, impacts, num_samples,
                                                click_gain, n_slots, shard)
     return state, impacts, voices, out
+
+
+def _render_block_traced(params, state, impacts, voices, pool, num_samples, click_gain,
+                         sustain_level, coupling, n_slots, n_per_obj):
+    """render_block's debug route: coupled_inputs, the plain recurrence with its trace,
+    then finish_block. Returns (state, impacts, voices, out, dbg)."""
+    from .coupled import _group_voices, _resonate_coupled_plain, coupled_inputs
+
+    args, vb, click = coupled_inputs(params, state, impacts, voices, pool, num_samples,
+                                     click_gain, sustain_level, coupling, n_slots, n_per_obj)
+    order, offsets = _group_voices(args[12], params.coeff_re.shape[0], args[13])
+    mix, z_re, z_im, rm_out, pen_out, rows = _resonate_coupled_plain(
+        *args[:13], order, offsets, trace=True)
+    if n_per_obj:
+        state, impacts, voices = finish_block(params, impacts, z_re, z_im, num_samples,
+                                              voices, vb, rm_out, pen_out)
+    else:
+        state, impacts, _ = finish_block(params, impacts, z_re, z_im, num_samples)
+    dbg = {"relief": vb.relief, "slope0": vb.slope0, "slope1": vb.slope1,
+           "heights": vb.heights, "rm0": vb.rm0, "rm_out": rm_out, "pen_out": pen_out,
+           **rows}
+    return state, impacts, voices, mix + click, dbg

@@ -51,7 +51,7 @@ def test_imports_with_jax_blocked():
         " 'bench', 'scripts', 'scripts.render_bench', 'scripts.edit_loop_bench',"
         " 'scripts.cdt_bench', 'scripts.realimpact_batch', 'scripts.tet_corpus_snapshot',"
         " 'scripts.make_realimpact_double', 'scripts.check_eigensolver',"
-        " 'scripts.realimpact_harness']\n"
+        " 'scripts.realimpact_harness', 'scripts.diag_cdt_solve']\n"
         "missing = [n for n in need if pkg.__name__ + '.' + n not in names]\n"
         "assert not missing, missing\n"
         "bad = [m for m, v in sys.modules.items() if v is not None and (m == 'mesheditor_tpu'"

@@ -498,7 +498,8 @@ def test_coupled_kernel_two_s_equals_s_plus_s_on_card(k, per_obj):
 def test_render_block_is_the_engine_route(voiced):
     """synth.render_block, called on a synth's tables with the per-object counts left to
     it, gives ModalSynth.render's block bit for bit: the coupled render with a live voice,
-    the impact render (voices untouched) without."""
+    the impact render (voices untouched) without; with debug=True it returns the
+    reference's five-tuple (tests/test_torch_debug.py holds its traces)."""
     from mesheditor_tpu_torch.synth import render_block
 
     rng = np.random.default_rng(4)
@@ -528,5 +529,5 @@ def test_render_block_is_the_engine_route(voiced):
     assert (voices is voices_before) is not voiced
     if voiced:
         assert torch.equal(voices.relief_mean, synths[0].voices.relief_mean)
-    with pytest.raises(NotImplementedError):
-        render_block(b.params, b.state, b.impacts, b.voices, b.pool, 512, debug=True)
+    assert len(render_block(b.params, b.state, b.impacts, b.voices, b.pool, 512,
+                            debug=True)) == 5
