@@ -77,7 +77,8 @@ failure exits non-zero before the final line):
      then the same scene is run again from the stored models with every block also rendered
      by the plain version on host copies of the block's own arguments (the scene's bank
      shape, slots and voices) and held to the kernels' tolerances; the spread of the
-     repeated solves of one request (frequencies, mode-shape signs) is printed;
+     repeated solves of one request (frequencies, mode-shape signs) is printed and must be
+     none: the same frequencies, no mode flipped or turned;
   h. cli: `python -m mesheditor_tpu_torch warmup --set quickstart` (the torus solved and
      rendered: 51,402 dofs), then `solve`, `info` and `render`, as subprocesses, each with
      its wall;
@@ -152,7 +153,8 @@ failure exits non-zero before the final line):
      the structural snapshot equal tests/fixtures/tet_corpus_snapshot.txt. n2:
      tests/test_thin_shell_parity.py's 5%-wall bowl, 4 mm plate and 2.5%-wall bowl solved
      on the card at its settings, each within 0.1% of scipy (oracles in processes of their
-     own); dofs, iterations, the path that answered and the stage walls are printed. n3:
+     own); dofs, iterations, the path that answered (with the engine's exit) and the stage
+     walls are printed. n3:
      tests/test_modal_solver.py's slow bars on the card: the 20x4x4 square bar's families
      against the closed forms (longitudinal 1%, torsional 5%, bending 10%), the thin 30x5x1
      bar (longitudinal 1%, bending 5%) and the warm start. n4: `python -m
@@ -171,12 +173,13 @@ failure exits non-zero before the final line):
      for bit, relief_t equals relief transposed, every entry finite), and phase b's
      resting contact renders exactly 0.0 on both routes; both routes' walls a block are
      printed. o2: the bench box's pencil solved by lobpcg_pencil with the eigensolver's
-     trace off and on: one `[ortho]` line an iteration, and under
-     torch.use_deterministic_algorithms (the card's element apply sums with atomics in no
-     fixed order, so any two solves differ in their last bits; that pair is printed too)
-     bit-identical eigenvalues and vectors; the trace's cost as a wall delta. o3: in phase
-     n, the 2.5%-wall bowl (and with --scans the noisy scanned bowl) solved with the trace
-     on: its first and last five lines and the settled count where it stopped. o4: `python
+     trace off and on, free and under torch.use_deterministic_algorithms: one `[ortho]`
+     line an iteration, and all four solves bit-identical in eigenvalues and vectors (every
+     element sum adds in a fixed order); the trace's cost as a wall delta, and the free
+     pair's walls beside the flagged pair's. o3: in phase n, the 2.5%-wall bowl (and with
+     --scans the noisy scanned bowl) solved with the trace on: its first and last five
+     lines, the settled count where it stopped and the `[ortho exit]` line that names the
+     exit (settled, budget or noconv). o4: `python
      -m mesheditor_tpu_torch.scripts.diag_cdt_solve 2` as a process: exit 0, each run
      51,402 dofs, f1 within 1e-4 of 5565.28 Hz, one `[ortho]` line an iteration; each run's
      wall, iterations and f1;
@@ -1263,8 +1266,13 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
                 f"{sa._live[e].mass.mass:.3f} kg")
         assert all(sa._live[e].modes.num_modes > 0 for e in bodies), "a body has no modes"
         for kind, same in (("ball", bodies[0::2]), ("block", bodies[1::2])):
+            spread = solve_spread([sa._live[e].modes for e in same])
             log(f"[scene] the {len(same)} solves of the one {kind} request: "
-                + json.dumps(solve_spread([sa._live[e].modes for e in same])))
+                + json.dumps(spread))
+            # The element sums add in a fixed order, so a request solved again repeats bit
+            # for bit: the same frequencies, and no mode comes back flipped or turned.
+            assert spread["freq_rel"] == 0.0 and spread["flipped"] == spread["turned"] == 0, \
+                f"the {kind} request's solves do not repeat: {spread}"
         assert sa.reconcile().up_to_date == bodies, "second reconcile not all up to date"
         # A density edit is an exact rescale: no eigensolve.
         reg.get(bodies[0], c.AcousticMaterialRef).density *= 1.1
@@ -1340,7 +1348,9 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
                                                     + per_block("AudioContactBridge.resolve_voices"))
     render = per_block("ModalSynth.publish_voices") + per_block("ModalSynth.render")
     log(f"[scene] plane + {len(bodies)} bodies, 1 s at 48 kHz in {blocks} blocks of 512: rms "
-        f"{float(np.sqrt((audio.astype(np.float64) ** 2).mean())):.6e}, peak "
+        f"{float(np.sqrt((audio.astype(np.float64) ** 2).mean()))!r} (the second run's "
+        f"{float(np.sqrt((audio2.astype(np.float64) ** 2).mean()))!r}; every call of the "
+        f"script solves the scene afresh and must print these bits again), peak "
         f"{float(np.abs(audio).max()):.3e}; impact launches {launches['impact']}, coupled "
         f"launches {launches['coupled']} (one kernel launch per block); "
         f"{len(spans['PhysicsWorld.step'])} physics steps")
@@ -2807,10 +2817,11 @@ def render_bench_phase(device, card: str, blocks: int = 64, checked_blocks: int 
     return out
 
 
-def solve_paths() -> tuple[int, int]:
+def solve_paths() -> tuple[int, int, int]:
+    """The device and host solves so far, and the device answers by the budget exit."""
     from mesheditor_tpu_torch.solve import lobpcg
 
-    return lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES
+    return lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES, lobpcg.DEVICE_EXITS["budget"]
 
 
 def bench_phase(device, card: str, blocks: int = 64) -> dict:
@@ -2987,9 +2998,12 @@ def snapshot_check() -> float:
 
 
 def solve_path(before) -> str:
-    """The path that answered the solves since `before` (solve_paths())."""
-    device_n, host_n = solve_paths()
-    return "+".join(p for p, n in (("device", device_n - before[0]),
+    """The path that answered the solves since `before` (solve_paths()); a device answer
+    by the budget exit (every pair under tol_accept when the iterations ran out) reads
+    "device (budget)", one by the settled exit "device"."""
+    device_n, host_n, budget_n = solve_paths()
+    device = "device (budget)" if budget_n > before[2] else "device"
+    return "+".join(p for p, n in ((device, device_n - before[0]),
                                    ("host", host_n - before[1])) if n) or "none"
 
 
@@ -3370,12 +3384,12 @@ def debug_render_check(result, device, card: str, blocks: int = 3, frames: int =
 
 def debug_solve_check(device, card: str) -> dict:
     """o2: the bench box's pencil (assembled and preconditioned once) solved by
-    lobpcg_pencil with the trace off, then on. The card's element apply sums with atomics
-    in no fixed order, so two solves differ in their last bits whatever the trace (that
-    pair is printed); the pair held bit for bit runs under
-    torch.use_deterministic_algorithms, where they must give the same eigenvalues and
-    vectors, with one `[ortho]` line an iteration. The trace's cost is each pair's wall
-    delta."""
+    lobpcg_pencil with the trace off, then on, twice: free, and under
+    torch.use_deterministic_algorithms. Every element sum adds in a fixed order, so each
+    pair must give the same eigenvalues and vectors bit for bit, the free pair too, and the
+    two pairs must agree with each other; one `[ortho]` line an iteration. The trace's cost
+    is each pair's wall delta, and the free pair's walls are printed beside the flagged
+    pair's."""
     import torch
 
     from mesheditor_tpu_torch import bench
@@ -3401,7 +3415,8 @@ def debug_solve_check(device, card: str) -> dict:
             res = lobpcg_pencil(ops, nev, sigma=sigma, precond=pre, guard=cfg.guard,
                                 tol=cfg.tolerance, max_iters=cfg.max_restarts,
                                 inner_iters=cfg.inner_iters, small_n=cfg.small_n,
-                                host_fallback_n=cfg.host_fallback_n, debug=debug)
+                                host_fallback_n=cfg.host_fallback_n,
+                                tol_accept=cfg.tol_accept, debug=debug)
             torch.cuda.synchronize()
         return res, time.perf_counter() - t0, lines
 
@@ -3409,30 +3424,33 @@ def debug_solve_check(device, card: str) -> dict:
         return (float(np.abs(a.eigenvalues - b.eigenvalues).max()),
                 float((a.eigenvectors - b.eigenvectors).abs().max()))
 
-    off, off_s, _ = solve(False)
-    on, on_s, _ = solve(True)
+    off, off_s, quiet = solve(False)
+    on, on_s, lines = solve(True)
     free = differ(off, on)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        d_off, d_off_s, quiet = solve(False)
-        d_on, d_on_s, lines = solve(True)
+        d_off, d_off_s, d_quiet = solve(False)
+        d_on, d_on_s, d_lines = solve(True)
     finally:
         torch.use_deterministic_algorithms(False)
-    assert not quiet, quiet[:3]
-    assert np.array_equal(d_off.eigenvalues, d_on.eigenvalues), \
-        f"trace on moved the eigenvalues by {differ(d_off, d_on)[0]:.3e}"
-    assert torch.equal(d_off.eigenvectors, d_on.eigenvectors), "trace on moved the vectors"
-    assert len(lines) == d_on.iterations == d_off.iterations > 0, (len(lines), d_on.iterations)
+    assert not quiet and not d_quiet, (quiet + d_quiet)[:3]
+    for name, a, b in (("free", off, on), ("flagged", d_off, d_on), ("free and flagged", off,
+                                                                      d_off)):
+        assert np.array_equal(a.eigenvalues, b.eigenvalues), \
+            f"the {name} pair's eigenvalues differ by {differ(a, b)[0]:.3e}"
+        assert torch.equal(a.eigenvectors, b.eigenvectors), \
+            f"the {name} pair's vectors differ by {differ(a, b)[1]:.3e}"
+    assert len(lines) == len(d_lines) == on.iterations == d_on.iterations > 0, \
+        (len(lines), len(d_lines), on.iterations, d_on.iterations)
     assert d_on.eigenvalues.size == nev
     for line in lines[:2] + ["..."] + lines[-2:]:
         log(f"[debug] o2 | {line}")
-    log(f"[debug] o2 bench box ({ops.n_dofs} dofs, {nev} pairs): as the solve runs, trace off "
-        f"{off_s:.3f} s / on {on_s:.3f} s ({on_s - off_s:+.3f} s), {off.iterations} / "
-        f"{on.iterations} iterations, apart by {free[0]:.3e} in eigenvalue and {free[1]:.3e} "
-        f"in vector entries (atomic sums); under deterministic algorithms off {d_off_s:.3f} s "
-        f"/ on {d_on_s:.3f} s ({d_on_s - d_off_s:+.3f} s), bit-identical eigenvalues and "
-        f"vectors, {len(lines)} [ortho] lines = {d_on.iterations} iterations ({card})")
-    return {"iterations": d_on.iterations, "lines": len(lines), "off_s": off_s, "on_s": on_s,
+    log(f"[debug] o2 bench box ({ops.n_dofs} dofs, {nev} pairs), {off.iterations} iterations, "
+        f"{len(lines)} [ortho] lines: free, trace off {off_s:.3f} s / on {on_s:.3f} s "
+        f"({on_s - off_s:+.3f} s); under deterministic algorithms off {d_off_s:.3f} s / on "
+        f"{d_on_s:.3f} s ({d_on_s - d_off_s:+.3f} s); all four bit-identical in eigenvalues "
+        f"and vectors ({card})")
+    return {"iterations": off.iterations, "lines": len(lines), "off_s": off_s, "on_s": on_s,
             "deterministic_off_s": d_off_s, "deterministic_on_s": d_on_s,
             "free_pair_differ": free}
 
@@ -3664,7 +3682,8 @@ def run(stack: contextlib.ExitStack) -> int:
     assert abs(f1 - F1_HZ) / F1_HZ < 1e-4, f"f1 {f1:.4f} Hz vs {F1_HZ}"
     log(f"[solve] dofs {result.profile.dofs}, modes {result.modes.num_modes}, "
         f"f1 {f1:.4f} Hz, iterations {result.profile.restarts}, device solves "
-        f"{lobpcg.DEVICE_SOLVES}, host solves {lobpcg.HOST_SOLVES}")
+        f"{lobpcg.DEVICE_SOLVES} (by exit {lobpcg.DEVICE_EXITS}), host solves "
+        f"{lobpcg.HOST_SOLVES}")
 
     t0 = time.perf_counter()
     audio = bench.render_main(result, device)

@@ -7,15 +7,18 @@ The pencil (K, M) is never assembled into sparse matrices: it stays as
 - the element masses rho*V[e] times one shared (30, 30) unit block kron(mass_tab, I3).
 
 Applying an operator to an (n, p) panel is index_select -> batched 30x30 matmul (bmm) ->
-index_add_, at NODE granularity: the dof layout is (node, component)-major, so each node's
-(3, p) slab is one contiguous row of x.reshape(n_nodes, 3p).
+ordered node sum, at NODE granularity: the dof layout is (node, component)-major, so each
+node's (3, p) slab is one contiguous row of x.reshape(n_nodes, 3p).
 
 Everything is float64. The reference's TPU-forced variants (f32/bf16 block copies, the
 split-K apply, macro-element clustering) answer nothing Hopper needs: it has native f64.
 
-Reproducibility: index_add_ on a CUDA tensor accumulates with atomics, so the order of the
-per-dof sums (and their last bits, ~1e-16 relative) differs from run to run. Nothing in the
-solve depends on bit-reproducibility; results are compared by tolerance.
+Reproducibility: every element-to-node sum (the applies, the diagonals, the touched count)
+adds each node's (element, local) slots in ascending order, by a segmented sum over a
+node-sorted permutation built once per operator (NodeSum). index_add_ on a CUDA tensor adds
+with atomics in no fixed order, so a solve repeated on the card would differ in its last
+bits and, through them, in its modes' signs; with the fixed order it repeats bit for bit.
+On the CPU index_add_ adds in slot order, so both forms give the same bits there.
 
 Element sharding (parallel/sharding.py:shard_element_ops): an operator whose `tp` is set
 holds one contiguous slice of the elements of a tensor-parallel group. Every element sum
@@ -25,7 +28,7 @@ all_reduce before the diagonal fixes are added, which every rank holds whole.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -54,26 +57,45 @@ def filter_degenerate(points: np.ndarray, tets: np.ndarray) -> np.ndarray:
     return tets[keep].astype(np.uint32)
 
 
+@dataclass(frozen=True)
+class NodeSum:
+    """A row sum by group in a fixed order: the rows sorted by group, stable (each group's
+    rows ascending), and each group's row count. For the element-to-node sums the rows are
+    the (E*10,) element slots, in (element, local) order, and the groups the nodes."""
+
+    order: torch.Tensor
+    lengths: torch.Tensor
+
+    @staticmethod
+    def of(group: torch.Tensor, n_groups: int) -> "NodeSum":
+        """The sum of rows into n_groups groups, row i into group[i] (any shape, flattened)."""
+        flat = group.reshape(-1)
+        return NodeSum(torch.argsort(flat, stable=True), torch.bincount(flat, minlength=n_groups))
+
+    def __call__(self, rows: torch.Tensor) -> torch.Tensor:
+        """(rows, w) -> (n_groups, w) group sums, in the fixed order."""
+        return torch.segment_reduce(rows.index_select(0, self.order), "sum",
+                                    lengths=self.lengths, axis=0, unsafe=True)
+
+
 def _apply_node(elem_nodes: torch.Tensor, blocks: torch.Tensor, x: torch.Tensor,
-                n_dofs: int) -> torch.Tensor:
+                n_dofs: int, slots: NodeSum) -> torch.Tensor:
     """y = A @ x for (E, 30, 30) element blocks, or for ONE (30, 30) block scaled per
-    element when `blocks` is a (scale (E,), unit (30, 30)) pair (the mass form)."""
+    element when `blocks` is a (scale (E,), unit (30, 30)) pair (the mass form); the node
+    sums in the order of `slots`."""
     squeeze = x.dim() == 1
     if squeeze:
         x = x[:, None]
     p = x.shape[1]
     n_nodes = n_dofs // 3
     e = elem_nodes.shape[0]
-    flat = elem_nodes.reshape(-1)
-    xe = x.reshape(n_nodes, 3 * p).index_select(0, flat).reshape(e, 30, p)
+    xe = x.reshape(n_nodes, 3 * p).index_select(0, elem_nodes.reshape(-1)).reshape(e, 30, p)
     if isinstance(blocks, tuple):
         scale, unit = blocks
         ye = torch.matmul(unit, xe) * scale[:, None, None]
     else:
         ye = torch.bmm(blocks, xe)
-    y = torch.zeros(n_nodes, 3 * p, dtype=x.dtype, device=x.device)
-    y.index_add_(0, flat, ye.reshape(e * 10, 3 * p))
-    y = y.reshape(n_dofs, p)
+    y = slots(ye.reshape(e * 10, 3 * p)).reshape(n_dofs, p)
     return y[:, 0] if squeeze else y
 
 
@@ -98,6 +120,7 @@ class ElementOperators:
     k_fix/m_fix: (n_dofs,) diagonal parking for dofs no element touches (see _orphan_fixes)
     tp: None, or this rank's ElementSlice of a tensor-parallel group (parallel/sharding.py):
         the element arrays are then the slice, k_fix/m_fix and n_dofs stay whole
+    slots: the NodeSum of elem_nodes, built here when not given
     """
 
     elem_nodes: torch.Tensor
@@ -108,6 +131,11 @@ class ElementOperators:
     m_fix: torch.Tensor
     n_dofs: int
     tp: object = None
+    slots: NodeSum = field(default=None, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.slots is None:
+            object.__setattr__(self, "slots", NodeSum.of(self.elem_nodes, self.n_dofs // 3))
 
     @property
     def device(self) -> torch.device:
@@ -120,11 +148,12 @@ class ElementOperators:
         return (3 * self.elem_nodes[:, :, None] + comp).reshape(-1, 30)
 
     def kmat(self, x: torch.Tensor) -> torch.Tensor:
-        y = _apply_node(self.elem_nodes, self.k_blocks, x, self.n_dofs)
+        y = _apply_node(self.elem_nodes, self.k_blocks, x, self.n_dofs, self.slots)
         return _add_fix(_total(y, self.tp), x, self.k_fix)
 
     def mmat(self, x: torch.Tensor) -> torch.Tensor:
-        y = _apply_node(self.elem_nodes, (self.rho_vol, self.m_unit), x, self.n_dofs)
+        y = _apply_node(self.elem_nodes, (self.rho_vol, self.m_unit), x, self.n_dofs,
+                        self.slots)
         return _add_fix(_total(y, self.tp), x, self.m_fix)
 
     def shifted(self, sigma: float) -> "ShiftedElementOperator":
@@ -132,7 +161,7 @@ class ElementOperators:
         bake_shifted_f32, in float64 and element form only)."""
         a = self.k_blocks - sigma * (self.rho_vol[:, None, None] * self.m_unit[None])
         return ShiftedElementOperator(self.elem_nodes, a, self.k_fix - sigma * self.m_fix,
-                                      self.n_dofs, self.tp)
+                                      self.n_dofs, self.slots, self.tp)
 
     def whole(self) -> "ElementOperators":
         """Every element of the pencil on this rank: self when unsharded, else the group's
@@ -152,10 +181,11 @@ class ShiftedElementOperator:
     a_blocks: torch.Tensor
     a_fix: torch.Tensor
     n_dofs: int
+    slots: NodeSum
     tp: object = None
 
     def amat(self, x: torch.Tensor) -> torch.Tensor:
-        y = _apply_node(self.elem_nodes, self.a_blocks, x, self.n_dofs)
+        y = _apply_node(self.elem_nodes, self.a_blocks, x, self.n_dofs, self.slots)
         return _add_fix(_total(y, self.tp), x, self.a_fix)
 
 
@@ -183,25 +213,18 @@ def _build_k_blocks_host(points, tets, grad_tab, lam, mu):
     return k, volume
 
 
-def _scatter_diag(elem_nodes, diag_e, n_dofs):
+def _scatter_diag(slots: NodeSum, diag_e):
     """(E, 30) element diagonals -> (n_dofs,) assembled diagonal."""
-    e = elem_nodes.shape[0]
-    y = torch.zeros(n_dofs // 3, 3, dtype=diag_e.dtype, device=diag_e.device)
-    y.index_add_(0, elem_nodes.reshape(-1), diag_e.reshape(e * 10, 3))
-    return y.reshape(-1)
+    return slots(diag_e.reshape(-1, 3)).reshape(-1)
 
 
-def _orphan_fixes(k_blocks, rho_vol, m_unit, elem_nodes, n_dofs: int):
+def _orphan_fixes(k_blocks, rho_vol, m_unit, slots: NodeSum):
     """Diagonal parking for dofs no element touches (orphan/padding vertices): a stiffness
     over a mass at ~100x the pencil's own lambda_max keeps their eigenvalues far above any
     audible window instead of leaving a singular 0/0 pencil block."""
-    k_diag = _scatter_diag(elem_nodes, torch.diagonal(k_blocks, dim1=1, dim2=2), n_dofs)
-    m_diag = _scatter_diag(elem_nodes, rho_vol[:, None] * torch.diagonal(m_unit)[None, :],
-                           n_dofs)
-    ones = torch.ones(elem_nodes.numel(), 3, dtype=k_diag.dtype, device=k_diag.device)
-    touched = torch.zeros(n_dofs // 3, 3, dtype=k_diag.dtype, device=k_diag.device)
-    touched.index_add_(0, elem_nodes.reshape(-1), ones)
-    touched = touched.reshape(-1) > 0
+    k_diag = _scatter_diag(slots, torch.diagonal(k_blocks, dim1=1, dim2=2))
+    m_diag = _scatter_diag(slots, rho_vol[:, None] * torch.diagonal(m_unit)[None, :])
+    touched = (slots.lengths > 0).repeat_interleave(3)
     live = touched & (m_diag > 0)
     if bool(live.any()):
         lam_est = torch.max(k_diag[live] / m_diag[live])
@@ -235,15 +258,15 @@ def assemble_element_matrices(
     rho_vol = torch.as_tensor(material.density * volume, **f64)
     m_unit = torch.as_tensor(np.kron(mass_tab, np.eye(3)), **f64)
     nodes = torch.as_tensor(quad.element_nodes.astype(np.int64), device=device)
-    k_fix, m_fix = _orphan_fixes(k_blocks, rho_vol, m_unit, nodes, n_dofs)
-    return ElementOperators(nodes, k_blocks, rho_vol, m_unit, k_fix, m_fix, n_dofs)
+    slots = NodeSum.of(nodes, quad.node_count)
+    k_fix, m_fix = _orphan_fixes(k_blocks, rho_vol, m_unit, slots)
+    return ElementOperators(nodes, k_blocks, rho_vol, m_unit, k_fix, m_fix, n_dofs,
+                            slots=slots)
 
 
 def pencil_diagonals(ops: ElementOperators):
     """diag(K) and diag(M), scattered from the element blocks (Jacobi preconditioning)."""
-    k_diag = _scatter_diag(ops.elem_nodes, torch.diagonal(ops.k_blocks, dim1=1, dim2=2),
-                           ops.n_dofs)
-    m_diag = _scatter_diag(ops.elem_nodes,
-                           ops.rho_vol[:, None] * torch.diagonal(ops.m_unit)[None, :],
-                           ops.n_dofs)
+    k_diag = _scatter_diag(ops.slots, torch.diagonal(ops.k_blocks, dim1=1, dim2=2))
+    m_diag = _scatter_diag(ops.slots,
+                           ops.rho_vol[:, None] * torch.diagonal(ops.m_unit)[None, :])
     return _total(k_diag, ops.tp) + ops.k_fix, _total(m_diag, ops.tp) + ops.m_fix

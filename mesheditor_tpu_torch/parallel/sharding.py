@@ -156,7 +156,7 @@ def shard_element_ops(ops, mesh: Mesh, axis: str = "tp"):
         return t[lo:hi].to(dev).contiguous()
 
     # Every replicated array must have the same bits on every rank (the partial applies act
-    # on one panel); the fixes come from index_add_ sums, so take the first rank's.
+    # on one panel): take the first rank's fixes, whatever device each rank summed them on.
     return ElementOperators(
         elem_nodes=part(ops.elem_nodes),
         k_blocks=part(ops.k_blocks),
@@ -253,17 +253,18 @@ def sharded_pencil_ops(mesh: Mesh, elem_dofs, k_blocks, rho_vol, m_unit, n_dofs,
     """Matrix-free K@X / M@X (no diagonal fixes, as the reference's) with this rank's
     element slice from shard_elements and X replicated: each rank computes its partial
     scatter and an all_reduce over the `axis` group completes the sum."""
-    from ..fem.assembly import _apply_node
+    from ..fem.assembly import NodeSum, _apply_node
 
     group = mesh.groups[axis]
     nodes = (elem_dofs[:, 0::3] // 3).contiguous()  # (E_r, 10): dof 3a+c is node a
+    slots = NodeSum.of(nodes, n_dofs // 3)
     m_unit = torch.as_tensor(np.asarray(m_unit), device=mesh.device)
 
     def kmat(x):
-        return _group_sum(_apply_node(nodes, k_blocks, x, n_dofs), group)
+        return _group_sum(_apply_node(nodes, k_blocks, x, n_dofs, slots), group)
 
     def mmat(x):
-        return _group_sum(_apply_node(nodes, (rho_vol, m_unit), x, n_dofs), group)
+        return _group_sum(_apply_node(nodes, (rho_vol, m_unit), x, n_dofs, slots), group)
 
     return kmat, mmat
 

@@ -4,7 +4,7 @@ scripts/check_eigensolver.py): the port's `lobpcg_pencil` with the AMG precondit
 pencil, with the largest relative frequency error over the audible modes.
 
 Usage: python -m mesheditor_tpu_torch.scripts.check_eigensolver [nx ny nz [nev [inner]]]
-       [--device cuda|cpu]
+       [--tol-accept T] [--device cuda|cpu]
 Exits 1 when the engine returns no eigenpair.
 """
 
@@ -17,8 +17,9 @@ import time
 import numpy as np
 
 
-def check(res=(8, 2, 2), nev=20, inner=24, device="cuda"):
-    """Solve the 0.3 x 0.05 x 0.05 m bar at `res` cells both ways. Returns a dict with
+def check(res=(8, 2, 2), nev=20, inner=24, device="cuda", tol_accept=1e-4):
+    """Solve the 0.3 x 0.05 x 0.05 m bar at `res` cells both ways (the engine with its
+    acceptance floor at `tol_accept`, as lobpcg_pencil takes it). Returns a dict with
     the two frequency lists (audible modes), the largest relative error, the engine's
     iterations, its panel applications and the two walls; None for the engine's side when
     it returned nothing."""
@@ -55,7 +56,7 @@ def check(res=(8, 2, 2), nev=20, inner=24, device="cuda"):
     pre = build_amg(mesh.points, kept, quad, ops, kd, md, sigma)
     t0 = time.perf_counter()
     res_ = lobpcg_pencil(ops, nev, sigma=sigma, precond=pre, tol=1e-8, max_iters=200,
-                         inner_iters=inner, small_n=0)
+                         inner_iters=inner, small_n=0, tol_accept=tol_accept)
     if device.type == "cuda":
         import torch
 
@@ -84,13 +85,15 @@ def check(res=(8, 2, 2), nev=20, inner=24, device="cuda"):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("sizes", nargs="*", type=int, help="nx ny nz [nev [inner]]")
+    ap.add_argument("--tol-accept", type=float, default=1e-4,
+                    help="the engine's acceptance floor (lobpcg_pencil's tol_accept)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     s = args.sizes
     res = tuple(s[:3]) if len(s) >= 3 else (8, 2, 2)
     nev = s[3] if len(s) > 3 else 20
     inner = s[4] if len(s) > 4 else 24
-    out = check(res, nev, inner, args.device)
+    out = check(res, nev, inner, args.device, args.tol_accept)
     if out["got_hz"] is None:
         print("LOBPCG FAILED to converge")
         sys.exit(1)

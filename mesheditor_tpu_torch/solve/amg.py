@@ -24,6 +24,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..fem.assembly import NodeSum
+
 
 def _restrict(w: torch.Tensor, agg: torch.Tensor, nagg: int, x: torch.Tensor) -> torch.Tensor:
     """P^T x: coarse coordinates of an (n_dofs, p) panel, one (6p)-wide row per node.
@@ -35,11 +37,7 @@ def _restrict(w: torch.Tensor, agg: torch.Tensor, nagg: int, x: torch.Tensor) ->
     nn = w.shape[0]
     p = x.shape[1]
     xn = torch.einsum("nck,ncp->nkp", w, x.reshape(nn, 3, p)).reshape(nn, 6 * p)
-    order = torch.argsort(agg, stable=True)
-    lengths = torch.bincount(agg, minlength=nagg)
-    rc = torch.segment_reduce(xn.index_select(0, order), "sum", lengths=lengths, axis=0,
-                              unsafe=True)
-    return rc.reshape(nagg * 6, p)
+    return NodeSum.of(agg, nagg)(xn).reshape(nagg * 6, p)
 
 
 def _prolong(w: torch.Tensor, agg: torch.Tensor, nagg: int, xc: torch.Tensor) -> torch.Tensor:
@@ -264,6 +262,16 @@ def _rigid_weights(coords: np.ndarray, agg: np.ndarray, nagg: int):
     return w
 
 
+def _add_in_order(acc: torch.Tensor, ids: torch.Tensor, rows: torch.Tensor) -> None:
+    """acc[ids[k]] += rows[k] for k ascending, as a segmented sum in which each target's old
+    value leads its segment: index_add_'s order on the CPU, and a fixed one on the card,
+    where index_add_ adds with atomics in no fixed order."""
+    uniq, counts = torch.unique(ids, return_counts=True)
+    order = torch.argsort(torch.cat([uniq, ids]), stable=True)
+    vals = torch.cat([acc.index_select(0, uniq), rows]).index_select(0, order)
+    acc[uniq] = torch.segment_reduce(vals, "sum", lengths=counts + 1, axis=0, unsafe=True)
+
+
 # Elements per coarse-assembly chunk: bounds the (2, chunk, 60, 60) f64 temporary.
 _AC_CHUNK = 2048
 
@@ -274,7 +282,8 @@ def _coarse_assemble_pencil(ops, w: torch.Tensor, agg: torch.Tensor, nagg: int):
 
     Per element, P_e is block-diagonal over its 10 nodes (node i's (3, 6) block w[node_i]
     in rows 3i.., columns 6i..), so P_e^T B_e P_e is a (10, 10) grid of 6x6 blocks; block
-    (i, j) is added at aggregate pair (agg[node_i], agg[node_j])."""
+    (i, j) is added at aggregate pair (agg[node_i], agg[node_j]), in (element, i, j) order
+    (_add_in_order), so the pencil has the same bits on every run."""
     en = ops.elem_nodes
     e_total = en.shape[0]
     dev = w.device
@@ -293,7 +302,7 @@ def _coarse_assemble_pencil(ops, w: torch.Tensor, agg: torch.Tensor, nagg: int):
         t = t.reshape(2, ch, 10, 6, 10, 6).permute(1, 2, 4, 0, 3, 5)  # (ch, 10, 10, 2, 6, 6)
         ag = agg.index_select(0, en_c.reshape(-1)).reshape(ch, 10)
         ids = (ag[:, :, None] * nagg + ag[:, None, :]).reshape(-1)
-        acc.index_add_(0, ids, t.reshape(ch * 100, 72))
+        _add_in_order(acc, ids, t.reshape(ch * 100, 72))
     if ops.tp is not None:  # this rank's elements only: sum the group's partials
         acc = ops.tp.sum(acc)
     acc = acc.reshape(nagg, nagg, 2, 6, 6).permute(2, 0, 3, 1, 4).reshape(2, 6 * nagg, 6 * nagg)

@@ -4,19 +4,21 @@ mesheditor_tpu/solve/lobpcg.py).
 Two ways to an answer, chosen as the reference chooses them:
 
 - the DEVICE path: the float64 LOBPCG engine (solve/eigs.py) with the AMG preconditioner,
-  for pencils above `small_n` dofs;
+  for pencils above `small_n` dofs. It answers by two of the reference's f64 polish
+  exits: every pair settled at `tol` two iterations running ("settled"), or every pair
+  moving less than `tol_accept` when the `max_iters` budget is spent ("budget");
 - the HOST path: scipy's sparse shift-invert Lanczos (eigsh with sigma) on the assembled
   CSR pencil, for pencils at or below `small_n`, and as the fallback when the device path
-  has no preconditioner or does not converge and the pencil is host-feasible
+  has no preconditioner or answers by none of its exits and the pencil is host-feasible
   (n <= host_fallback_n).
 
 Which path answered is never silent: DEVICE_SOLVES and HOST_SOLVES count the solves each
-path answered in this process.
+path answered in this process, and DEVICE_EXITS the device engine's answers by exit.
 
 On an element-sharded pencil (`ops.tp` set) every rank of the group runs the same calls.
 The host path then solves the gathered whole pencil and every rank takes the answer of the
 group's first rank; the device path takes its eigenvalue estimates, and with them every
-host decision (settled count, locking, convergence, NaN), from that rank too, and agrees on
+host decision (settled and accepted counts, locking, exit, NaN), from that rank too, and agrees on
 cancellation (eigs.py). So no rank can leave a collective that another still waits in.
 """
 
@@ -31,6 +33,7 @@ import torch
 
 DEVICE_SOLVES = 0  # solves the float64 device engine answered
 HOST_SOLVES = 0  # solves the host shift-invert answered (small pencils and fallbacks)
+DEVICE_EXITS = {"settled": 0, "budget": 0}  # engine answers by exit (eigs.py)
 
 
 @dataclass
@@ -164,13 +167,16 @@ def lobpcg_pencil(
     small_n: int = 9000,
     host_fallback_n: int = 120_000,
     debug: Optional[bool] = None,
+    tol_accept: float = 1e-4,
 ) -> LobpcgResult:
     """Lowest `nev` eigenpairs of K x = lambda M x for element-form operators `ops`.
 
     `sigma` (negative) shifts the preconditioner pencil. `x0` (n, >=1) seeds the leading
     elastic columns (warm start). `callback(iteration, settled)` may return True to cancel,
-    which gives an empty result (the reference's JobMonitor contract). `debug` (default:
-    the MESHEDITOR_TPU_DEBUG_EIG env var, as in the reference) prints the device engine's
+    which gives an empty result (the reference's JobMonitor contract). `tol_accept` is the
+    device engine's acceptance floor for its "budget" exit (used as max(tol, tol_accept),
+    as the reference's polish does). `debug` (default: the
+    MESHEDITOR_TPU_DEBUG_EIG env var, as in the reference) prints the device engine's
     per-iteration `[ortho]` trace (eigs.py:ortho_lobpcg); the answer does not change."""
     global DEVICE_SOLVES
     from .amg import AmgPrecond, spectral_seed
@@ -231,11 +237,13 @@ def lobpcg_pencil(
     if debug is None:
         debug = bool(os.environ.get("MESHEDITOR_TPU_DEBUG_EIG"))
     res, status, iters, ops_count = ortho_lobpcg(
-        ops, amat, precond, x_e, nev_e, sigma, tol, max_iters, inner_iters, callback, debug)
+        ops, amat, precond, x_e, nev_e, sigma, tol, max_iters, inner_iters, callback, debug,
+        tol_accept)
     if res is None:
         return fail(iters, ops_count, status)
-    lam_e, x_vec, res_e = res
+    lam_e, x_vec, res_e, exit_rule = res
     DEVICE_SOLVES += 1
+    DEVICE_EXITS[exit_rule] += 1
     lam = np.concatenate([np.zeros(rigid_cols), lam_e])
     vecs = torch.cat([precond.rigid[:, :rigid_cols], x_vec], 1)
     res_norm = np.concatenate([np.zeros(rigid_cols), res_e])

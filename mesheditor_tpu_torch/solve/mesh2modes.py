@@ -212,6 +212,7 @@ def mesh2modes(
         callback=callback,
         small_n=config.small_n,
         host_fallback_n=config.host_fallback_n,
+        tol_accept=config.tol_accept,
     )
     synchronize(device)
     profile.iterate = time.perf_counter() - t0

@@ -249,8 +249,9 @@ def solve(pencil, **kw):
 @pytest.mark.parametrize("how", ["argument", "env var"])
 def test_trace_is_one_line_an_iteration_and_changes_no_bit(pencil, how, monkeypatch):
     """debug=True, or MESHEDITOR_TPU_DEBUG_EIG with debug left at None, prints one
-    `[ortho]` line an iteration, in order, settled counts of the 14 elastic pairs; the
-    eigenvalues and eigenvectors are those of the solve with the trace off, bit for bit."""
+    `[ortho]` line an iteration, in order, settled counts of the 14 elastic pairs, then one
+    `[ortho exit]` line naming the exit that answered; the eigenvalues and eigenvectors are
+    those of the solve with the trace off, bit for bit."""
     monkeypatch.delenv("MESHEDITOR_TPU_DEBUG_EIG", raising=False)
     off, quiet = solve(pencil)
     assert quiet == [] and off.eigenvalues.size == NEV
@@ -259,6 +260,10 @@ def test_trace_is_one_line_an_iteration_and_changes_no_bit(pencil, how, monkeypa
     else:
         monkeypatch.setenv("MESHEDITOR_TPU_DEBUG_EIG", "1")
         on, lines = solve(pencil)
+    *lines, exit_line = lines
+    assert exit_line.startswith(f"[ortho exit] it={on.iterations} exit=settled "
+                                f"settled={NEV - 6}/{NEV - 6} accepted={NEV - 6}/{NEV - 6} "), \
+        exit_line
     fields = [ORTHO.match(line) for line in lines]
     assert all(fields) and len(lines) == on.iterations == off.iterations > 1
     assert [int(m[1]) for m in fields] == list(range(1, on.iterations + 1))
