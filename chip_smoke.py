@@ -179,11 +179,18 @@ failure exits non-zero before the final line):
      pair's walls beside the flagged pair's. o3: in phase n, the 2.5%-wall bowl (and with
      --scans the noisy scanned bowl) solved with the trace on: its first and last five
      lines, the settled count where it stopped and the `[ortho exit]` line that names the
-     exit (settled, budget or noconv). o4: `python
+     exit (certified, settled, budget or noconv) and the gate's iteration. o4: `python
      -m mesheditor_tpu_torch.scripts.diag_cdt_solve 2` as a process: exit 0, each run
      51,402 dofs, f1 within 1e-4 of 5565.28 Hz, one `[ortho]` line an iteration; each run's
      wall, iterations and f1;
   d. timings and the whole script's wall.
+
+Every eigensolve of phases m, n, o and g (and the main path's warm-up) prints one `solve:`
+line as it returns (solve_log): its dofs, the exit that answered (the engine's certified,
+settled or budget, or host), its iterations, the iteration at which the engine's gate
+opened (where the reference's f32 stage would hand over to its f64 polish) and its wall.
+The solves of m1, n4 and o4 run in processes of their own and report through standard
+error.
 
 The line before the last is the card's name and power limit; before it, one JSON line
 with each kernel's main-path launches, its launches in phases g, j, k, l, m, n and o (o1's
@@ -1131,6 +1138,71 @@ def timed_methods(*targets):
             setattr(cls, name, inner)
 
 
+@contextlib.contextmanager
+def solve_log(tag: str | None = None, card: str = ""):
+    """While open, every lobpcg_pencil call (direct, or through mesh2modes) is logged under
+    `tag` as it returns, with its dofs, the exit that answered (the engine's, "host",
+    "rigid", or "none" for the empty result), its iterations, the iteration at which the
+    engine's gate opened ("-" while closed) and its wall on the host clock, ending in a
+    sync. With no `tag` each record goes to standard error as one `[solve] {json}` line
+    instead (a process of its own: solve_lines reads them)."""
+    import importlib
+
+    import torch
+
+    from mesheditor_tpu_torch.solve import lobpcg
+
+    m2m = importlib.import_module("mesheditor_tpu_torch.solve.mesh2modes")
+    inner = lobpcg.lobpcg_pencil
+
+    def wrapper(ops, nev, **kw):
+        t0 = time.perf_counter()
+        res = inner(ops, nev, **kw)
+        if res.eigenvectors.is_cuda:
+            torch.cuda.synchronize()
+        rec = {"dofs": int(ops.n_dofs), "exit": res.exit or "none",
+               "iterations": int(res.iterations), "gate": res.gate,
+               "wall_s": time.perf_counter() - t0}
+        if tag is None:
+            print("[solve] " + json.dumps(rec), file=sys.stderr, flush=True)
+        else:
+            log_solve(tag, rec, card)
+        return res
+
+    lobpcg.lobpcg_pencil = m2m.lobpcg_pencil = wrapper
+    try:
+        yield
+    finally:
+        lobpcg.lobpcg_pencil = m2m.lobpcg_pencil = inner
+
+
+def log_solve(tag: str, rec: dict, card: str) -> None:
+    log(f"{tag} solve: {rec['dofs']} dofs, exit {rec['exit']}, {rec['iterations']} "
+        f"iterations, gate {rec['gate'] or '-'}, {rec['wall_s']:.3f} s ({card})")
+
+
+def solve_lines(stderr: str, tag: str, card: str) -> list:
+    """The `[solve]` records a process printed under solve_log, each logged under `tag`."""
+    records = [json.loads(line.split(" ", 1)[1]) for line in stderr.splitlines()
+               if line.startswith("[solve] ")]
+    for rec in records:
+        log_solve(tag, rec, card)
+    return records
+
+
+# A module run as `python -m` runs it (argv: the repo, the module, its arguments), with its
+# solves logged by solve_log to standard error.
+SOLVE_LOG_CODE = """
+import runpy, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+module = sys.argv[2]
+sys.argv = [module] + sys.argv[3:]
+with chip_smoke.solve_log():
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+"""
+
+
 def _on_host(arg):
     """A host copy of a dataclass of tensors (a bank, a table, the pool); anything else as
     it is."""
@@ -1252,7 +1324,8 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
         lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
         sa = SceneAudio(reg, store, tet_resolution=tet_resolution, device=device)
         t0 = time.perf_counter()
-        first = sa.reconcile()
+        with solve_log("[scene]", card):
+            first = sa.reconcile()
         reconcile_s = time.perf_counter() - t0
         assert first.solved == bodies, f"solved {first.solved}, not every body once"
         assert lobpcg.DEVICE_SOLVES == len(bodies) and lobpcg.HOST_SOLVES == 0, \
@@ -2664,12 +2737,13 @@ def bench_command(card: str) -> dict:
     from mesheditor_tpu_torch import bench
 
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mesheditor_tpu_torch", "bench"], cwd=REPO,
-                          capture_output=True, text=True, timeout=900)
+    proc = subprocess.run([sys.executable, "-c", SOLVE_LOG_CODE, str(REPO), "mesheditor_tpu_torch",
+                           "bench"], cwd=REPO, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     assert proc.returncode == 0, f"bench exited {proc.returncode}:\n{proc.stderr[-4000:]}"
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     detail = json.loads(proc.stderr.strip().splitlines()[-1])
+    solve_lines(proc.stderr, "[bench] m1", card)
     assert list(report) == ["metric", "value", "unit", "vs_baseline"], report
     assert report["metric"] == bench.METRIC and report["unit"] == "x_realtime", report
     assert detail["dofs"] == 44_289 and detail["modes"] == 250, detail
@@ -2683,7 +2757,8 @@ def bench_command(card: str) -> dict:
     launches = int(re.search(r"impact kernel launches: (\d+)", proc.stderr).group(1))
     assert launches == BENCH_LAUNCHES, f"bench launched the impact kernel {launches} times"
     for line in proc.stderr.strip().splitlines()[:-1]:
-        log(f"[bench] | {line}")
+        if not line.startswith("[solve] "):
+            log(f"[bench] | {line}")
     log(f"[bench] m1 `python -m mesheditor_tpu_torch bench` ({wall:.1f} s as a process): "
         f"{json.dumps(report)}; impact launches {launches}; detail {json.dumps(detail)}")
     return {**detail, "launches": launches, "wall_s": wall, "value": report["value"]}
@@ -2817,11 +2892,11 @@ def render_bench_phase(device, card: str, blocks: int = 64, checked_blocks: int 
     return out
 
 
-def solve_paths() -> tuple[int, int, int]:
-    """The device and host solves so far, and the device answers by the budget exit."""
+def solve_paths() -> tuple[int, int, dict]:
+    """The device and host solves so far, and the device answers by exit."""
     from mesheditor_tpu_torch.solve import lobpcg
 
-    return lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES, lobpcg.DEVICE_EXITS["budget"]
+    return lobpcg.DEVICE_SOLVES, lobpcg.HOST_SOLVES, dict(lobpcg.DEVICE_EXITS)
 
 
 def bench_phase(device, card: str, blocks: int = 64) -> dict:
@@ -2836,7 +2911,8 @@ def bench_phase(device, card: str, blocks: int = 64) -> dict:
 
     before = solve_paths()
     t0 = time.perf_counter()
-    loop = edit_loop_bench.main(["--device", device])
+    with solve_log("[edit_loop] m3", card):
+        loop = edit_loop_bench.main(["--device", device])
     after = solve_paths()
     rescaled = loop["rescaled"]
     assert rescaled is not None and np.isfinite(rescaled.freqs).all()
@@ -2849,7 +2925,8 @@ def bench_phase(device, card: str, blocks: int = 64) -> dict:
         f"{after[0] - before[0]}, host solves {after[1] - before[1]} ({card})")
 
     t0 = time.perf_counter()
-    cdt = cdt_bench.main(["--device", device])
+    with solve_log("[cdt_bench] m4", card):
+        cdt = cdt_bench.main(["--device", device])
     assert cdt["modes"] > 0 and np.isfinite(cdt["f1_hz"]), cdt
     log(f"[cdt_bench] m4 in {time.perf_counter() - t0:.1f} s: answered by the {cdt['path']} "
         f"path, {cdt['iters']} iterations, {cdt['dofs']} dofs, {cdt['modes']} modes ({card})")
@@ -2859,7 +2936,8 @@ def bench_phase(device, card: str, blocks: int = 64) -> dict:
         write_realimpact_scan(root)
         write_realimpact_scan(root, name="12_GlassGoblet", scale=(0.08, 0.1, 0.08))
         t0 = time.perf_counter()
-        rows, mix = realimpact_batch.main([str(root), "--devices", "1", "--device", device])
+        with solve_log("[realimpact_batch] m5", card):
+            rows, mix = realimpact_batch.main([str(root), "--devices", "1", "--device", device])
     assert [r["object"] for r in rows] == ["GlassGoblet", "BowlCeramic"], rows
     assert all(r["modes"] > 0 and r["f1_hz"] > 0 for r in rows), rows
     assert mix.shape == (512,) and np.isfinite(mix).all() and np.abs(mix).max() > 0
@@ -2999,11 +3077,10 @@ def snapshot_check() -> float:
 
 def solve_path(before) -> str:
     """The path that answered the solves since `before` (solve_paths()); a device answer
-    by the budget exit (every pair under tol_accept when the iterations ran out) reads
-    "device (budget)", one by the settled exit "device"."""
-    device_n, host_n, budget_n = solve_paths()
-    device = "device (budget)" if budget_n > before[2] else "device"
-    return "+".join(p for p, n in ((device, device_n - before[0]),
+    reads "device (<exit>)"."""
+    device_n, host_n, exits = solve_paths()
+    moved = ",".join(k for k, v in exits.items() if v > before[2][k])
+    return "+".join(p for p, n in ((f"device ({moved})", device_n - before[0]),
                                    ("host", host_n - before[1])) if n) or "none"
 
 
@@ -3184,7 +3261,7 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 limit = int(sys.argv[2])
 sys.argv = ["realimpact_harness"] + sys.argv[3:]
-with chip_smoke.blocks_against_plain(limit=limit) as stats:
+with chip_smoke.blocks_against_plain(limit=limit) as stats, chip_smoke.solve_log():
     runpy.run_module("mesheditor_tpu_torch.scripts.realimpact_harness", run_name="__main__")
 print("[checked] " + json.dumps(stats["impact"]))
 """
@@ -3216,6 +3293,7 @@ def harness_check(device, card: str, tmp: Path, double, tet_resolution: int) -> 
         capture_output=True, text=True, timeout=900)
     wall_s = time.perf_counter() - t0
     assert proc.returncode == 0, f"the harness exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    solve_lines(proc.stderr, "[scans] n4 harness", card)
     lines = proc.stdout.splitlines()
     for line in lines[:-1]:
         log(f"[scans] harness | {line}")
@@ -3273,10 +3351,12 @@ def scans_phase(device, card: str, full: bool = False,
             snap_s = snapshot_check()
             log(f"[scans] n1 snapshot: the port-built mesher's non-iso rows equal "
                 f"{SNAPSHOT_FIXTURE.relative_to(REPO)} in {snap_s:.1f} s")
-            rows = shells_check(device, card, cases[:3])
-            bars = bars_check(device, card)
+            with solve_log("[scans]", card):
+                rows = shells_check(device, card, cases[:3])
+                bars = bars_check(device, card)
             harness = harness_check(device, card, tmp, double, tet_resolution)
-            rows += shells_check(device, card, cases[3:])
+            with solve_log("[scans]", card):
+                rows += shells_check(device, card, cases[3:])
         finally:
             double.kill()
             for case in cases:
@@ -3475,11 +3555,12 @@ def diag_cdt_check(card: str, runs: int = 2) -> dict:
     card: exit 0; every run 51,402 dofs, f1 within 1e-4 of 5565.28 Hz, one `[ortho]` line
     an iteration. Returns each run's wall, iterations and f1 and the process wall."""
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "mesheditor_tpu_torch.scripts.diag_cdt_solve",
-                           str(runs), "--device", "cuda"], capture_output=True, text=True,
-                          timeout=600, cwd=REPO)
+    proc = subprocess.run([sys.executable, "-c", SOLVE_LOG_CODE, str(REPO),
+                           "mesheditor_tpu_torch.scripts.diag_cdt_solve", str(runs), "--device",
+                           "cuda"], capture_output=True, text=True, timeout=600, cwd=REPO)
     wall_s = time.perf_counter() - t0
     assert proc.returncode == 0, f"diag_cdt_solve exited {proc.returncode}:\n{proc.stderr[-3000:]}"
+    solves = solve_lines(proc.stderr, "[debug] o4", card)
     rows = diag_runs(proc.stdout)
     for i, row in enumerate(rows):
         assert row["dofs"] == TORUS_DOFS, row
@@ -3489,6 +3570,7 @@ def diag_cdt_check(card: str, runs: int = 2) -> dict:
             f"({row['lines']} [ortho] lines), f1 {row['f1_hz']:.2f} Hz, {row['dofs']} dofs "
             f"({card})")
     assert len(rows) == runs, proc.stdout[-2000:]
+    assert [r["iterations"] for r in rows] == [r["iterations"] for r in solves], (rows, solves)
     log(f"[debug] o4 diag_cdt_solve {runs}: process wall {wall_s:.1f} s ({card})")
     return {"runs": rows, "process_s": wall_s}
 
@@ -3499,14 +3581,16 @@ def debug_phase(device, card: str, result=None) -> dict:
     phase n (TRACED_SHELLS). The coupled kernel's launches in o1 are returned apart from
     every other phase's."""
     t_phase = time.perf_counter()
-    if result is None:
-        from mesheditor_tpu_torch import bench, mesh2modes
-        from mesheditor_tpu_torch.materials import CERAMIC
+    with solve_log("[debug]", card):
+        if result is None:
+            from mesheditor_tpu_torch import bench, mesh2modes
+            from mesheditor_tpu_torch.materials import CERAMIC
 
-        mesh, cfg, excite = bench.bench_box()
-        result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
-    out = {"o1": debug_render_check(result, device, card),
-           "o2": debug_solve_check(device, card), "o4": diag_cdt_check(card)}
+            mesh, cfg, excite = bench.bench_box()
+            result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
+        out = {"o1": debug_render_check(result, device, card),
+               "o2": debug_solve_check(device, card)}
+    out["o4"] = diag_cdt_check(card)
     log(f"[debug] phase o in {time.perf_counter() - t_phase:.1f} s ({card})")
     return out
 
@@ -3667,7 +3751,8 @@ def run(stack: contextlib.ExitStack) -> int:
     lobpcg.DEVICE_SOLVES = lobpcg.HOST_SOLVES = 0
 
     t0 = time.perf_counter()
-    warm = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
+    with solve_log("[solve] warm-up", card):
+        warm = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)
     log(f"[solve] warm-up {time.perf_counter() - t0:.2f} s: {warm.profile.report()}")
     t0 = time.perf_counter()
     result = mesh2modes(mesh, CERAMIC.properties, excite, config=cfg, device=device)

@@ -17,19 +17,32 @@ separate f64 polish, periodic re-anchoring of the carried panels) has nothing to
 
 Reference semantics kept: the exact rigid modes are seeded and deflated by the caller;
 settled leading columns are soft-locked out of W/P; a `callback` returning True cancels.
-The loop stands in for the reference's f64 polish (solve/lobpcg.py:_polish_from_panel)
-and answers by two of its exits, in its order:
+The one loop stands in for both the reference's f32 stage (solve/eigs.py:ortho_lobpcg) and
+its f64 polish (solve/lobpcg.py:_polish_from_panel), and answers by their exits, decided by
+`_ExitRules` in the reference's order (eigs.py:_check: NaN, then cancellation, then the
+exits):
+- "certified": when tol >= 3e-7 (the stage's floor, tol32 = max(tol, 3e-7)), the largest
+  relative residual |K x - theta M x| / (|K x| + |sigma| |M x|) of the nev Ritz pairs under
+  res_exit = min(1e-3, max(3.16e-4, sqrt(tol * 1e3))), on one iteration. The residuals are
+  those of the previous iteration's pairs, one iteration behind, as the reference checks
+  them. Below 3e-7 the certificate does not answer: it opens the gate, as the reference's
+  need_polish64 sends such a stage on to the polish;
 - "settled": the settling criterion (mesh2modes.cpp:403-410, cluster-aware) at `tol` held
   two iterations running;
 - "budget": at the last iteration, every pair settled at tol_acc = max(tol, tol_accept)
   (the reference's last-iteration rule, two running, and its after-the-loop rule, one,
-  folded).
-Anything else is "noconv", which the caller sends to the host. The polish's third exit,
-"stagnated" (the settled prefix stuck for 8 iterations while every pair settles at tol_acc
-two running), is left out: the polish starts from a panel its f32 stage converged to 3e-7,
-this loop from the seed, so the rule fires mid-convergence here: on the 12-triangle cuboid
-of tests/test_torch_surface_fineness.py it answered far outside the 1e-6 of the host path
-at which the engine is held.
+  folded). The polish's own 40-iteration cap is not carried over: its budget is
+  `max_iters`, which this loop shares with the stage's.
+The gate is where the reference's stage would hand over to its polish: the prefix settled
+at tol32 two iterations running, the certificate when tol < 3e-7, or the handoff (the
+prefix at tol32 stuck for 10 iterations, from iteration 16 on). It is recorded, not acted
+on: the polish's third exit, "stagnated" (the prefix at `tol` stuck for 8 iterations after
+the gate while every pair settles at tol_acc two running), is left out. Ported behind this
+gate, it answered the 12-triangle cuboid of tests/test_torch_surface_fineness.py at
+iteration 25 (the handoff opened the gate at 16, the values still converging) at 5.8e-5
+off the host path, against the 1e-6 that test holds. In the reference the handoff marks
+its f32 floor; this loop has none, so the handoff opens the gate mid-convergence.
+Anything else is "noconv", which the caller sends to the host.
 """
 
 from __future__ import annotations
@@ -129,14 +142,75 @@ def _rayleigh_ritz(a: torch.Tensor, b: torch.Tensor, p_want: int):
     return theta[:p_want], linv.T @ v[:, :p_want]
 
 
-def _ritz_rel_residuals(s, ks, ms, c, theta, nev: int, sigma: float) -> torch.Tensor:
-    """Relative residuals |K x - theta M x| / (|K x| + |sigma| |M x|) of the first nev Ritz
-    pairs of the basis s (the reference's `rel`, eigs.py:_iter_stage). Reads the panels
-    and writes nothing the iteration uses."""
-    kx, mx = ks @ c[:, :nev], ms @ c[:, :nev]
-    r = kx - mx * theta[:nev]
+def _rel_residuals(kx, mx, theta, sigma: float) -> torch.Tensor:
+    """Relative residuals |K x - theta M x| / (|K x| + |sigma| |M x|) of the Ritz pairs
+    whose products are the columns of kx and mx (the reference's `rel`,
+    eigs.py:_iter_stage). Only norms: it writes nothing the iteration uses."""
+    r = kx - mx * theta
     return torch.linalg.norm(r, dim=0) / (torch.linalg.norm(kx, dim=0)
                                           + abs(sigma) * torch.linalg.norm(mx, dim=0) + 1e-300)
+
+
+TOL32 = 3e-7  # the reference's f32-stage floor, tol32 = max(tol, 3e-7) (lobpcg.py:589)
+_STREAK = 2  # iterations running that a settled prefix must hold
+_HANDOFF_PATIENCE, _HANDOFF_FROM = 10, 16  # the stage's handoff (eigs.py:557)
+
+
+class _ExitRules:
+    """The exit decision of `ortho_lobpcg`, on the host, one call an iteration (module
+    docstring). Plain numpy: `check` takes the iteration, its Ritz values and the nev
+    relative residuals of the previous iteration's pairs, and returns the exit, "nan", or
+    None to go on. After a call, `settled`, `settled_acc` and `rel_set` hold that
+    iteration's settled prefixes (at tol and at tol_acc) and relative changes, and `gate`
+    the iteration at which the gate opened (None while closed)."""
+
+    def __init__(self, nev: int, tol: float, sigma: float, max_iters: int,
+                 tol_accept: float = 1e-4, floor_rel: float = 1e-9):
+        self.nev, self.tol, self.sigma, self.max_iters = nev, tol, sigma, max_iters
+        self.floor_rel = floor_rel
+        self.tol32 = max(tol, TOL32)
+        self.tol_acc = max(tol, tol_accept)
+        self.res_exit = min(1e-3, max(3.16e-4, (tol * 1e3) ** 0.5))
+        self.prev = np.full(nev, np.inf)
+        self.streak = self.streak32 = self.accept_streak = 0
+        self.best, self.since = -1, 0  # growth of the prefix at tol32, until the gate
+        self.gate = None
+        self.settled = self.settled_acc = 0
+        self.rel_set = np.full(nev, np.inf)
+
+    def check(self, it: int, lam: np.ndarray, rel: np.ndarray):
+        from .lobpcg import _settled_prefix
+
+        nev = self.nev
+        if not np.isfinite(lam[:nev]).all():
+            return "nan"
+
+        def prefix(tol):
+            return _settled_prefix(lam, self.prev, nev, tol, self.sigma, self.floor_rel)
+
+        self.settled, self.rel_set, _delta, _window = prefix(self.tol)
+        settled32 = self.settled if self.tol32 == self.tol else prefix(self.tol32)[0]
+        self.settled_acc = prefix(self.tol_acc)[0]
+        self.prev = lam
+        self.streak = self.streak + 1 if self.settled >= nev else 0
+        self.streak32 = self.streak32 + 1 if settled32 >= nev else 0
+        self.accept_streak = self.accept_streak + 1 if self.settled_acc >= nev else 0
+        certified = bool(np.isfinite(rel[:nev]).all() and rel[:nev].max() < self.res_exit)
+        if certified and self.tol >= TOL32:
+            return "certified"
+        if self.streak >= _STREAK:
+            return "settled"
+        if self.gate is None:
+            if settled32 > self.best:
+                self.best, self.since = settled32, 0
+            else:
+                self.since += 1
+            if (self.streak32 >= _STREAK or certified
+                    or (self.since >= _HANDOFF_PATIENCE and it >= _HANDOFF_FROM)):
+                self.gate = it
+        if it == self.max_iters and self.accept_streak >= 1:
+            return "budget"
+        return None
 
 
 def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: float,
@@ -144,22 +218,24 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
                  debug: bool = False, tol_accept: float = 1e-4):
     """LOBPCG outer loop over the elastic (rigid-deflated) spectrum.
 
-    Returns ((lam (nev,), x (n, nev), res_norm (nev,), exit), status, iterations, op_count)
-    with status "done" and `exit` the rule that answered ("settled" or "budget", module
-    docstring), or (None, status, ...) with status in {"cancel", "nan", "noconv"}.
+    Returns ((lam (nev,), x (n, nev), res_norm (nev,), exit), status, iterations, op_count,
+    gate) with status "done" and `exit` the rule that answered ("certified", "settled" or
+    "budget", module docstring), or (None, status, ...) with status in
+    {"cancel", "nan", "noconv"}; `gate` is the iteration at which the gate opened, or None.
 
     `debug` prints one line per iteration, flushed, in the reference's format
     (eigs.py:_check): the iteration, the settled prefix of nev, the eigenvalue at the first
     unsettled index (the last when all settled) with its relative change, the largest
-    relative residual of the nev Ritz pairs and the wall since the previous line. After the
-    line of the iteration that answers, or after the last when none does, one `[ortho
-    exit]` line names the exit ("noconv" for none) with the settled prefix at `tol` and at
-    tol_acc. The residuals are computed only then, from panels the iteration does not
-    change, so the answer is the same bit for bit with the trace on or off.
+    relative residual the certificate read (the previous iteration's pairs) and the wall
+    since the previous line. After the line of the iteration that answers, or after the
+    last when none does, one `[ortho exit]` line names the exit ("noconv" for none) with the
+    settled prefix at `tol` and at tol_acc and the iteration at which the gate opened ("-"
+    while closed). The trace only prints what the exit rules read, so the answer is the
+    same bit for bit with it on or off.
     """
     import time
 
-    from .lobpcg import _cancelled, _settled_prefix
+    from .lobpcg import _cancelled
 
     p = x_seed.shape[1]
     x = x_seed
@@ -168,16 +244,16 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
     theta, c = _rayleigh_ritz(x.T @ kx, x.T @ mx, p)
     s, ks, ms = x, kx, mx
     ops_count = 2
-    prev = np.full(nev, np.inf)
-    tol_acc = max(tol, tol_accept)
-    streak = accept_streak = 0
+    rules = _ExitRules(nev, tol, sigma, max_iters, tol_accept)
     lock = 0
     lock_cap = max(p - _LOCK_STEP, 0)
-    floor_rel = 1e-9
     last_t = time.perf_counter()
 
     for it in range(1, max_iters + 1):
         x, kx, mx = s @ c, ks @ c, ms @ c
+        # The certificate's residuals: the previous iteration's nev pairs, from the
+        # products this iteration forms anyway.
+        rel = _rel_residuals(kx[:, :nev], mx[:, :nev], theta[:nev], sigma)
         has_p = s.shape[1] > p
         if has_p:
             c_wp = c[p:, lock:]
@@ -199,44 +275,37 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
             blocks.append(_chol_qr_m(pdir, kp, mp))
         s, ks, ms = (torch.cat(t, 1) for t in zip(*blocks))
         theta, c = _rayleigh_ritz(s.T @ ks, s.T @ ms, p)
+        read = torch.cat([theta, rel])
         if ops.tp is not None:
-            # Every rank makes the host decisions below (settled, locked, done) from the
-            # group's first rank's values, so none can leave the loop while another waits
-            # in a collective, whatever the last bits of its own panels.
-            theta = ops.tp.agree(theta)
+            # Every rank makes the host decisions below (exit, locked, done) from the
+            # group's first rank's values and residuals, so none can leave the loop while
+            # another waits in a collective, whatever the last bits of its own panels.
+            read = ops.tp.agree(read)
+            theta = read[:p]
+        read = read.cpu().numpy()
+        lam, rel_h = read[:p], read[p:]
 
-        lam = theta.cpu().numpy()
-        if not np.isfinite(lam[:nev]).all():
-            return None, "nan", it, ops_count
-        settled, rel_set, _delta, _window = _settled_prefix(lam, prev, nev, tol, sigma,
-                                                            floor_rel)
-        settled_acc = _settled_prefix(lam, prev, nev, tol_acc, sigma, floor_rel)[0]
-        prev = lam
-        streak = streak + 1 if settled >= nev else 0
-        accept_streak = accept_streak + 1 if settled_acc >= nev else 0
-        if streak >= 2:
-            exit_rule = "settled"
-        elif it == max_iters and accept_streak >= 1:
-            exit_rule = "budget"
-        else:
-            exit_rule = None
+        exit_rule = rules.check(it, lam, rel_h)
+        if exit_rule == "nan":
+            return None, "nan", it, ops_count, rules.gate
+        settled = rules.settled
         if debug:
-            res_max = float(_ritz_rel_residuals(s, ks, ms, c, theta, nev, sigma).max())
             now = time.perf_counter()
             dt, last_t = now - last_t, now
             j = min(settled, nev - 1)
             print(f"[ortho] it={it} settled={settled}/{nev} lam_j={lam[j]:.6e} "
-                  f"set_rel={rel_set[j]:.2e} res_max={res_max:.2e} dt={dt:.2f}s", flush=True)
+                  f"set_rel={rules.rel_set[j]:.2e} res_max={rel_h.max():.2e} dt={dt:.2f}s",
+                  flush=True)
             if exit_rule or it == max_iters:
                 print(f"[ortho exit] it={it} exit={exit_rule or 'noconv'} settled={settled}/"
-                      f"{nev} accepted={settled_acc}/{nev} tol={tol:.1e} tol_acc={tol_acc:.1e}",
-                      flush=True)
+                      f"{nev} accepted={rules.settled_acc}/{nev} tol={tol:.1e} "
+                      f"tol_acc={rules.tol_acc:.1e} gate={rules.gate or '-'}", flush=True)
         if _cancelled(ops, callback, it, settled):
-            return None, "cancel", it, ops_count
+            return None, "cancel", it, ops_count, rules.gate
         if exit_rule:
             x, kx, mx = s @ c[:, :nev], ks @ c[:, :nev], ms @ c[:, :nev]
             res = torch.linalg.norm(kx - mx * theta[:nev], dim=0).cpu().numpy()
-            return (lam[:nev].copy(), x, res, exit_rule), "done", it, ops_count
+            return (lam[:nev].copy(), x, res, exit_rule), "done", it, ops_count, rules.gate
         bucket = min(max(settled - _LOCK_MARGIN, 0) // _LOCK_STEP * _LOCK_STEP, lock_cap)
         lock = max(lock, bucket)
-    return None, "noconv", max_iters, ops_count
+    return None, "noconv", max_iters, ops_count, rules.gate

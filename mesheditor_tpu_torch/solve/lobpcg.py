@@ -4,22 +4,26 @@ mesheditor_tpu/solve/lobpcg.py).
 Two ways to an answer, chosen as the reference chooses them:
 
 - the DEVICE path: the float64 LOBPCG engine (solve/eigs.py) with the AMG preconditioner,
-  for pencils above `small_n` dofs. It answers by two of the reference's f64 polish
-  exits: every pair settled at `tol` two iterations running ("settled"), or every pair
-  moving less than `tol_accept` when the `max_iters` budget is spent ("budget");
+  for pencils above `small_n` dofs. It answers by the reference's exits, its f32 stage's
+  and its f64 polish's on one loop: the residual certificate when `tol` >= 3e-7
+  ("certified"), every pair settled at `tol` two iterations running ("settled"), or every
+  pair moving less than `tol_accept` when the `max_iters` budget is spent ("budget"). The
+  polish's stagnation exit is left out (eigs.py says why);
 - the HOST path: scipy's sparse shift-invert Lanczos (eigsh with sigma) on the assembled
   CSR pencil, for pencils at or below `small_n`, and as the fallback when the device path
   has no preconditioner or answers by none of its exits and the pencil is host-feasible
   (n <= host_fallback_n).
 
 Which path answered is never silent: DEVICE_SOLVES and HOST_SOLVES count the solves each
-path answered in this process, and DEVICE_EXITS the device engine's answers by exit.
+path answered in this process, and DEVICE_EXITS the device engine's answers by exit; each
+LobpcgResult names its own (`exit`) and the iteration at which the engine's gate opened.
 
 On an element-sharded pencil (`ops.tp` set) every rank of the group runs the same calls.
 The host path then solves the gathered whole pencil and every rank takes the answer of the
-group's first rank; the device path takes its eigenvalue estimates, and with them every
-host decision (settled and accepted counts, locking, exit, NaN), from that rank too, and agrees on
-cancellation (eigs.py). So no rank can leave a collective that another still waits in.
+group's first rank; the device path takes its eigenvalue estimates and residuals, and
+with them every host decision (settled and accepted counts, certificate, gate, locking,
+exit, NaN), from that rank too, and agrees on cancellation (eigs.py). So no rank can leave
+a collective that another still waits in.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ import torch
 
 DEVICE_SOLVES = 0  # solves the float64 device engine answered
 HOST_SOLVES = 0  # solves the host shift-invert answered (small pencils and fallbacks)
-DEVICE_EXITS = {"settled": 0, "budget": 0}  # engine answers by exit (eigs.py)
+# engine answers by exit (eigs.py)
+DEVICE_EXITS = {"certified": 0, "settled": 0, "budget": 0}
 
 
 @dataclass
@@ -43,6 +48,8 @@ class LobpcgResult:
     iterations: int = 0
     op_applications: int = 0  # pencil panels applied
     residual_norms: Optional[np.ndarray] = None
+    exit: str = ""  # the engine's exit (DEVICE_EXITS), "rigid", "host", or "" when empty
+    gate: Optional[int] = None  # the engine's iteration at which its gate opened
 
 
 def _empty(n: int, device, iterations: int = 0, ops_count: int = 0) -> LobpcgResult:
@@ -98,7 +105,7 @@ def _small_pencil_path(ops, nev: int, p: int, sigma: float, callback) -> LobpcgR
     if _cancelled(ops, callback, 1, nev):
         return _empty(n, ops.device, 1, 1)
     HOST_SOLVES += 1
-    return LobpcgResult(vals.copy(), vecs, 1, 1, residual_norms=np.zeros(nev))
+    return LobpcgResult(vals.copy(), vecs, 1, 1, residual_norms=np.zeros(nev), exit="host")
 
 
 def _cancelled(ops, callback, iteration: int, settled: int) -> bool:
@@ -189,15 +196,17 @@ def lobpcg_pencil(
     if n <= small_n:
         return _small_pencil_path(ops, nev, p, sigma, callback)
 
-    def fail(iterations, ops_count, reason="noconv"):
+    def fail(iterations, ops_count, reason="noconv", gate=None):
         # Cancellation gives the empty result; numerical failure answers on the host
         # when the pencil is host-feasible (counted in HOST_SOLVES).
         if reason != "cancel" and n <= host_fallback_n:
             result = _small_pencil_path(ops, nev, p, sigma, callback)
             result.iterations += iterations
             result.op_applications += ops_count
-            return result
-        return _empty(n, dev, iterations, ops_count)
+        else:
+            result = _empty(n, dev, iterations, ops_count)
+        result.gate = gate
+        return result
 
     if not isinstance(precond, AmgPrecond):
         return fail(0, 0)
@@ -208,7 +217,7 @@ def lobpcg_pencil(
         # Every wanted mode is rigid: known in closed form, eigenvalue exactly 0.
         DEVICE_SOLVES += 1
         return LobpcgResult(np.zeros(nev), precond.rigid[:, :nev], 0, 0,
-                            residual_norms=np.zeros(nev))
+                            residual_norms=np.zeros(nev), exit="rigid")
 
     # Seed: the exact rigid modes are prepended to the answer (eigenvalue exactly 0) and
     # deflated out of the iteration; the elastic panel is warm-start columns, then the
@@ -236,15 +245,16 @@ def lobpcg_pencil(
 
     if debug is None:
         debug = bool(os.environ.get("MESHEDITOR_TPU_DEBUG_EIG"))
-    res, status, iters, ops_count = ortho_lobpcg(
+    res, status, iters, ops_count, gate = ortho_lobpcg(
         ops, amat, precond, x_e, nev_e, sigma, tol, max_iters, inner_iters, callback, debug,
         tol_accept)
     if res is None:
-        return fail(iters, ops_count, status)
+        return fail(iters, ops_count, status, gate)
     lam_e, x_vec, res_e, exit_rule = res
     DEVICE_SOLVES += 1
     DEVICE_EXITS[exit_rule] += 1
     lam = np.concatenate([np.zeros(rigid_cols), lam_e])
     vecs = torch.cat([precond.rigid[:, :rigid_cols], x_vec], 1)
     res_norm = np.concatenate([np.zeros(rigid_cols), res_e])
-    return LobpcgResult(lam, vecs, iters, ops_count, residual_norms=res_norm)
+    return LobpcgResult(lam, vecs, iters, ops_count, residual_norms=res_norm, exit=exit_rule,
+                        gate=gate)
