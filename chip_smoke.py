@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (mesheditor_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels | --scene | --render | --files | --viewer | --multichip |
-                           --bench | --debug | --scans]
+                           --bench | --debug | --scans | --pencil]
 
 Drives the port's main paths at full size — the 9,720-tet box solved to 256 modes
 (44,289 dofs), a 1 s, 64-object impact render at 48 kHz, the same 64 objects rendered
@@ -17,7 +17,8 @@ commands on it, a RealImpact scan compared with its render) and the interactive 
 server), the measurement surface (the `bench` command and the bench tools) and the
 scanned-object regime (the mesher's snapshot, thin shells and bars against their oracles,
 the RealImpact harness on a scan double) and the debugging surface (render_block's
-per-sample traces, the eigensolver's per-iteration trace, diag_cdt_solve) — after
+per-sample traces, the eigensolver's per-iteration trace, diag_cdt_solve) and the
+eigensolver's general-pencil form (operator callables, the closure engine) — after
 building the CUDA kernels from csrc/ and the tet mesher from native/tetmesher.cpp and
 checking each kernel against its plain PyTorch version on the card. Phases, in order (any
 failure exits non-zero before the final line):
@@ -183,6 +184,21 @@ failure exits non-zero before the final line):
      -m mesheditor_tpu_torch.scripts.diag_cdt_solve 2` as a process: exit 0, each run
      51,402 dofs, f1 within 1e-4 of 5565.28 Hz, one `[ortho]` line an iteration; each run's
      wall, iterations and f1;
+  p. pencil: lobpcg_pencil's callable form. p1: the reference's scripts/check_eigensolver.py
+     through the port's (`check`) on the 8x2x2 bar (1,275 dofs) and the 24x4x4 bar (11,907
+     dofs), 20 modes, inner 24, tol 1e-8, each with Jacobi CG and with CG on float32 sparse
+     copies of the pencil: answered by the closure engine alone, the panels by the op-count
+     rule (3 + 50 an iteration + 2 a refresh), every audible frequency within 1e-6 of
+     scipy's shift-invert, the engine's own six rigid eigenvalues (not exact zeros) under
+     1e-6 of the first elastic one; iterations, panels, error, rigid values and walls are
+     printed. p2: tests/test_amg.py's routing call (lambdas over op_state=ElementOperators
+     with kmat_pc/mmat_pc and the AMG, small_n=0) on the bench box's pencil: eigenvalues and
+     vectors bit-identical to the element form's on the card. p3, a record: the 2.5%-wall
+     bowl (and with --scans the noisy scanned bowl) through the closure engine (Jacobi, inner
+     24, tol 1e-8, 200 iterations at most) with its `[eig]` trace: iterations, the settled
+     count and the blocker's rel on the first and last lines, the answer or "empty", the
+     answer against phase n's scipy oracle where it has one, and the wall; an empty answer
+     after the whole budget passes, a NaN in the trace or a run past its budget fails;
   d. timings and the whole script's wall.
 
 Every eigensolve of phases m, n, o and g (and the main path's warm-up) prints one `solve:`
@@ -207,7 +223,9 @@ ends with "files: ok". --viewer runs phases 1-2 and k only and ends with "viewer
 runs phases 1-2 and o1, o2 and o4 only (solving the box first) and ends with "debug: ok".
 --scans
 runs phases 1-2 and n only, with the ellipsoid shell and the noisy scanned bowl (the JAX
-file's other slow shells) solved after n4, and ends with "scans: ok".
+file's other slow shells) solved after n4, after p3 on both thin walls (no oracle), and
+ends with "scans: ok" (the noisy bowl's 0 modes fail phase n's bar today). --pencil runs
+phases 1-2 and p only (p3 without an oracle) and ends with "pencil: ok".
 """
 
 from __future__ import annotations
@@ -216,6 +234,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -3102,9 +3121,10 @@ def start_shell_oracles(shells, tmp: Path) -> list:
 
 @contextlib.contextmanager
 def eig_trace(on: bool = True):
-    """While open and `on`, the device eigensolver's per-iteration trace is switched on
-    (MESHEDITOR_TPU_DEBUG_EIG) and taken off standard output: yields the list its
-    `[ortho]` lines land in; any other line printed meanwhile is logged as it was."""
+    """While open and `on`, the eigensolver's per-iteration trace is switched on
+    (MESHEDITOR_TPU_DEBUG_EIG) and taken off standard output: yields the list its lines
+    land in (the device engine's `[ortho]` lines, the closure engine's `[eig]` lines); any
+    other line printed meanwhile is logged as it was."""
     import io
 
     lines = []
@@ -3123,7 +3143,7 @@ def eig_trace(on: bool = True):
         else:
             os.environ["MESHEDITOR_TPU_DEBUG_EIG"] = env
         for line in buf.getvalue().splitlines():
-            (lines.append if line.startswith("[ortho]") else log)(line)
+            (lines.append if line.startswith(("[ortho]", "[eig] ")) else log)(line)
 
 
 def trace_summary(lines: list) -> dict:
@@ -3162,7 +3182,7 @@ def shells_check(device, card: str, cases) -> list:
                 f"{trace['settled_last']} at the last ({res.profile.restarts} iterations in "
                 f"all, {solve_path(before)} answered, {res.modes.num_modes} modes; {card})")
         got = np.asarray(res.modes.freqs)
-        k, rel, oracle_s = 0, float("inf"), float("nan")
+        k, rel, oracle_s, f_true = 0, float("inf"), float("nan"), None
         if got.size:  # a solve that returned nothing is reported without its oracle
             text, err = proc.communicate(timeout=1800)
             assert proc.returncode == 0, \
@@ -3177,7 +3197,8 @@ def shells_check(device, card: str, cases) -> list:
                "iterations": res.profile.restarts, "path": solve_path(before),
                "modes": res.modes.num_modes, "f1_hz": float(got[0]) if got.size else 0.0,
                "max_rel_err": rel, "solve_s": solve_s, "oracle_s": oracle_s,
-               "stages": res.profile.report(), "trace": trace}
+               "stages": res.profile.report(), "trace": trace,
+               "oracle_hz": None if f_true is None else f_true.tolist()}
         log(f"[scans] {name}: {row['tets']} tets, {row['dofs']} dofs, answered by "
             f"{row['path']} in {row['iterations']} iterations, {row['modes']} modes, f1 "
             f"{row['f1_hz']:.2f} Hz, lowest {k} within {rel:.3e} of scipy; solve "
@@ -3462,6 +3483,27 @@ def debug_render_check(result, device, card: str, blocks: int = 3, frames: int =
             "debug_ms": [r["debug_ms"] for r in records]}
 
 
+def bench_box_pencil(device) -> dict:
+    """The bench box's pencil as mesh2modes builds it, assembled and preconditioned once:
+    its element operators, diagonals, AMG, shift, clamped config and pair count."""
+    from mesheditor_tpu_torch import bench
+    from mesheditor_tpu_torch.fem import (assemble_element_matrices, build_quad_mesh,
+                                          filter_degenerate, pencil_diagonals)
+    from mesheditor_tpu_torch.materials import CERAMIC
+    from mesheditor_tpu_torch.solve.amg import build_amg
+
+    mesh, cfg, _excite = bench.bench_box()
+    cfg = cfg.clamp()
+    kept = filter_degenerate(mesh.points, mesh.tets)
+    quad = build_quad_mesh(kept, mesh.points.shape[0])
+    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad, device=device)
+    sigma = -((2 * np.pi * cfg.min_mode_freq) ** 2)
+    kd, md = pencil_diagonals(ops)
+    pre = build_amg(mesh.points, kept, quad, ops, kd, md, sigma)
+    return {"ops": ops, "kd": kd, "md": md, "pre": pre, "sigma": sigma, "cfg": cfg,
+            "nev": min(cfg.num_fem_modes, ops.n_dofs - 1)}
+
+
 def debug_solve_check(device, card: str) -> dict:
     """o2: the bench box's pencil (assembled and preconditioned once) solved by
     lobpcg_pencil with the trace off, then on, twice: free, and under
@@ -3472,21 +3514,10 @@ def debug_solve_check(device, card: str) -> dict:
     pair's."""
     import torch
 
-    from mesheditor_tpu_torch import bench
-    from mesheditor_tpu_torch.fem import (assemble_element_matrices, build_quad_mesh,
-                                          filter_degenerate, pencil_diagonals)
-    from mesheditor_tpu_torch.materials import CERAMIC
-    from mesheditor_tpu_torch.solve.amg import build_amg
     from mesheditor_tpu_torch.solve.lobpcg import lobpcg_pencil
 
-    mesh, cfg, _excite = bench.bench_box()
-    cfg = cfg.clamp()
-    kept = filter_degenerate(mesh.points, mesh.tets)
-    quad = build_quad_mesh(kept, mesh.points.shape[0])
-    ops = assemble_element_matrices(mesh.points, kept, CERAMIC.properties, quad, device=device)
-    sigma = -((2 * np.pi * cfg.min_mode_freq) ** 2)
-    pre = build_amg(mesh.points, kept, quad, ops, *pencil_diagonals(ops), sigma)
-    nev = min(cfg.num_fem_modes, ops.n_dofs - 1)
+    box = bench_box_pencil(device)
+    ops, pre, sigma, cfg, nev = (box[k] for k in ("ops", "pre", "sigma", "cfg", "nev"))
 
     def solve(debug):
         torch.cuda.synchronize()
@@ -3595,6 +3626,204 @@ def debug_phase(device, card: str, result=None) -> dict:
     return out
 
 
+# ---- phase p: the general-pencil form (operator callables, the closure engine) ----
+
+
+PENCIL_BARS = ((8, 2, 2), (24, 4, 4))  # the reference script's bar (1,275 dofs); 11,907 dofs
+PENCIL_PARITY = 1e-6  # p1: audible frequencies against scipy's shift-invert
+PENCIL_INNER, PENCIL_TOL, PENCIL_BUDGET = 24, 1e-8, 200  # the reference script's settings
+CLOSURE_TRACE = re.compile(r"\[eig\] it=(\d+) settled=(\d+)/(\d+) blocker: lam=(\S+) "
+                           r"delta=(\S+) rel=(\S+) window=(\S+)$")
+
+
+def closure_solves() -> int:
+    from mesheditor_tpu_torch.solve import lobpcg
+
+    return lobpcg.CLOSURE_SOLVES
+
+
+def pencil_bars_check(device, card: str) -> list:
+    """p1: the port's check_eigensolver.check (the reference's script) on each bar of
+    PENCIL_BARS, with Jacobi CG and with the float32 pencil (sparse float32 copies of the
+    assembled pencil): answered by the closure engine alone, its panels by the op-count
+    rule, every audible frequency within PENCIL_PARITY of scipy, and its own six rigid
+    eigenvalues (not exact zeros) under 1e-6 of the first elastic one."""
+    import io
+
+    from mesheditor_tpu_torch.scripts.check_eigensolver import check, op_rule
+
+    rows = []
+    for res in PENCIL_BARS:
+        for f32 in (False, True):
+            before, closure_before = solve_paths(), closure_solves()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out = check(res, 20, PENCIL_INNER, device=device, f32=f32)
+            for line in buf.getvalue().splitlines():
+                log(f"[pencil] p1 | {line}")
+            assert out["got_hz"] is not None, f"bar {res}, {out['engine']}: empty answer"
+            assert closure_solves() == closure_before + 1 and solve_paths() == before, \
+                f"bar {res}: not answered by the closure engine alone"
+            it = out["iterations"]
+            rule = op_rule(it, PENCIL_INNER, it // 25)
+            rigid = np.asarray(out["rigid"])
+            first = (2 * np.pi * out["got_hz"][0]) ** 2
+            log(f"[pencil] p1 bar {'x'.join(map(str, res))} ({out['n_dofs']} dofs, 20 modes, "
+                f"inner {PENCIL_INNER}), {out['engine']}: {it} iterations, "
+                f"{out['op_applications']} panels (rule {rule}), largest audible error "
+                f"{out['max_rel_err']:.3e} against scipy, rigid eigenvalues "
+                f"{' '.join(f'{v:.3e}' for v in rigid)}, engine {out['engine_s']:.3f} s, "
+                f"scipy {out['scipy_s']:.2f} s ({card})")
+            assert out["op_applications"] == rule, (out["op_applications"], rule)
+            assert out["max_rel_err"] < PENCIL_PARITY, out["max_rel_err"]
+            assert (rigid != 0).any() and np.abs(rigid).max() < 1e-6 * first, rigid
+            rows.append(out)
+    return rows
+
+
+def pencil_routing_check(device, card: str) -> dict:
+    """p2: tests/test_amg.py's routing call on the bench box's pencil with small_n=0:
+    lambdas over op_state=ElementOperators with kmat_pc/mmat_pc (float32 sparse copies of
+    the pencil) and the AMG goes to the element form, so its eigenvalues and vectors equal
+    lobpcg_pencil(ops, nev, precond=amg)'s bit for bit on the card (both solves answered by
+    the device engine, none by the closure engine)."""
+    import torch
+
+    from mesheditor_tpu_torch.scripts.check_eigensolver import f32_pencil
+    from mesheditor_tpu_torch.solve.lobpcg import lobpcg_pencil
+
+    box = bench_box_pencil(device)
+    ops, cfg, nev = box["ops"], box["cfg"], box["nev"]
+    kmat_pc, mmat_pc = f32_pencil(ops)
+    kw = dict(sigma=box["sigma"], precond=box["pre"], guard=cfg.guard, tol=cfg.tolerance,
+              max_iters=cfg.max_restarts, inner_iters=cfg.inner_iters, small_n=0,
+              host_fallback_n=cfg.host_fallback_n, tol_accept=cfg.tol_accept)
+    before, closure_before = solve_paths(), closure_solves()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    element = lobpcg_pencil(ops, nev, **kw)
+    torch.cuda.synchronize()
+    element_s = time.perf_counter() - t0
+    routed = lobpcg_pencil(lambda o, x: o.kmat(x), lambda o, x: o.mmat(x), box["kd"],
+                           box["md"], ops.n_dofs, nev, op_state=ops, kmat_pc=kmat_pc,
+                           mmat_pc=mmat_pc, **kw)
+    torch.cuda.synchronize()
+    routed_s = time.perf_counter() - t0 - element_s
+    after = solve_paths()
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 0), (before, after)
+    assert closure_solves() == closure_before, "the routing call reached the closure engine"
+    assert routed.eigenvalues.size == nev and routed.exit == element.exit
+    assert np.array_equal(routed.eigenvalues, element.eigenvalues), \
+        f"eigenvalues differ by {np.abs(routed.eigenvalues - element.eigenvalues).max():.3e}"
+    assert torch.equal(routed.eigenvectors, element.eigenvectors), \
+        f"vectors differ by {(routed.eigenvectors - element.eigenvectors).abs().max():.3e}"
+    log(f"[pencil] p2 bench box ({ops.n_dofs} dofs, {nev} pairs, small_n=0): the callable "
+        f"form with op_state and kmat_pc routed to the element form, exit {routed.exit}, "
+        f"{routed.iterations} iterations; eigenvalues and vectors bit-identical to "
+        f"lobpcg_pencil(ops, nev, precond=amg); element form {element_s:.3f} s, routed "
+        f"{routed_s:.3f} s ({card})")
+    return {"iterations": routed.iterations, "exit": routed.exit, "element_s": element_s,
+            "routed_s": routed_s}
+
+
+def pencil_shells_check(device, card: str, full: bool = False, oracles=None) -> list:
+    """p3, a record and not a gate: the thin walls of TRACED_SHELLS (the noisy bowl only
+    with `full`) meshed as phase n meshes them, and their pencils solved by the closure
+    engine (Jacobi CG, inner 24, tol 1e-8, at most 200 iterations) with the `[eig]` trace
+    on, for the same pairs as phase n's engine (6 rigid + the shell's count). Printed:
+    iterations, the settled count and the blocker's rel on the trace's first and last
+    lines, the answer or "empty", the answer against phase n's scipy oracle where
+    `oracles` ({shell: (dofs, audible Hz)}) has one (on the same mesh), and the wall. An
+    empty answer after the whole budget is the reference's contract; a CUDA error, a NaN in
+    the trace or a run past its budget fails."""
+    import torch
+
+    from mesheditor_tpu_torch.fem import (assemble_element_matrices, build_quad_mesh,
+                                          filter_degenerate, pencil_diagonals)
+    from mesheditor_tpu_torch.materials import CERAMIC
+    from mesheditor_tpu_torch.mesh.cdt import generate_tets_delaunay
+    from mesheditor_tpu_torch.scripts.check_eigensolver import op_rule
+    from mesheditor_tpu_torch.solve.lobpcg import lobpcg_pencil
+
+    sigma = -((2 * np.pi * 20.0) ** 2)
+    rows = []
+    for name, surface, nev in thin_shells(full):
+        if name not in TRACED_SHELLS:
+            continue
+        tm = generate_tets_delaunay(*surface())
+        kept = filter_degenerate(tm.points, tm.tets)
+        quad = build_quad_mesh(kept, tm.points.shape[0])
+        ops = assemble_element_matrices(tm.points, kept, CERAMIC.properties, quad,
+                                        device=device)
+        kd, md = pencil_diagonals(ops)
+        pairs = nev + 6
+        before, closure_before = solve_paths(), closure_solves()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with eig_trace() as lines:
+            res = lobpcg_pencil(ops.kmat, ops.mmat, kd, md, ops.n_dofs, pairs, sigma=sigma,
+                                tol=PENCIL_TOL, max_iters=PENCIL_BUDGET,
+                                inner_iters=PENCIL_INNER)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fields = [CLOSURE_TRACE.match(line) for line in lines]
+        assert lines and all(fields), f"{name}: trace lines {lines[:2]}"
+        assert not any("nan" in line for line in lines), f"{name}: NaN in the trace"
+        assert res.iterations <= PENCIL_BUDGET and len(lines) == res.iterations, \
+            (res.iterations, len(lines))
+        answered = res.eigenvalues.size > 0
+        assert answered or res.iterations == PENCIL_BUDGET, \
+            f"{name}: empty after {res.iterations} of {PENCIL_BUDGET} iterations"
+        assert solve_paths() == before
+        assert closure_solves() == closure_before + answered
+        rule = op_rule(res.iterations, PENCIL_INNER, res.iterations // 25)
+        assert res.op_applications == rule, (res.op_applications, rule)
+        for line in lines if len(lines) <= 6 else lines[:3] + ["..."] + lines[-3:]:
+            log(f"[pencil] p3 {name} | {line}")
+        row = {"shell": name, "dofs": ops.n_dofs, "pairs": pairs, "iterations": res.iterations,
+               "first": (fields[0][2], fields[0][6]), "last": (fields[-1][2], fields[-1][6]),
+               "answered": answered, "wall_s": wall, "max_rel_err": None}
+        answer = "empty (the budget spent)"
+        if answered:
+            f = np.sqrt(np.maximum(res.eigenvalues, 0)) / (2 * np.pi)
+            f = f[f > 20.0]
+            answer = f"{f.size} audible modes, f1 {f[0]:.2f} Hz"
+            dofs, oracle = (oracles or {}).get(name, (None, None))
+            if oracle is not None:
+                assert dofs == ops.n_dofs, f"{name}: {ops.n_dofs} dofs, phase n's {dofs}"
+                k = min(f.size, len(oracle), nev - 6)
+                row["max_rel_err"] = float((np.abs(f[:k] - oracle[:k]) / oracle[:k]).max())
+                answer += f", lowest {k} within {row['max_rel_err']:.3e} of phase n's scipy"
+            else:
+                answer += ", no oracle in this run"
+        log(f"[pencil] p3 {name} ({ops.n_dofs} dofs, {pairs} pairs) through the closure "
+            f"engine, Jacobi, inner {PENCIL_INNER}: {res.iterations} iterations, settled "
+            f"{row['first'][0]}/{pairs} (blocker rel {row['first'][1]}) at the first line, "
+            f"{row['last'][0]}/{pairs} (rel {row['last'][1]}) at the last; {answer}; "
+            f"{wall:.3f} s ({card})")
+        rows.append(row)
+    return rows
+
+
+def shell_oracles(rows) -> dict:
+    """{shell: (dofs, audible Hz of its scipy oracle)} of phase n's shell rows that have
+    one (a shell whose solve returned nothing has none)."""
+    return {r["shell"]: (r["dofs"], np.asarray(r["oracle_hz"])) for r in rows
+            if r.get("oracle_hz")}
+
+
+def pencil_phase(device, card: str, full: bool = False, shells=None) -> dict:
+    """Phase p: p1 (the reference's check_eigensolver on two bars, both preconditioner
+    variants), p2 (the callable form routed to the element form, bit for bit) and p3 (the
+    thin walls through the closure engine; phase n's shell rows, when given, lend their
+    oracles)."""
+    t_phase = time.perf_counter()
+    out = {"p1": pencil_bars_check(device, card), "p2": pencil_routing_check(device, card),
+           "p3": pencil_shells_check(device, card, full, shell_oracles(shells or ()))}
+    log(f"[pencil] phase p in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return out
+
+
 def run(stack: contextlib.ExitStack) -> int:
     """The phases, as the command line picks them; temporary directories that outlive a
     phase are entered on `stack`."""
@@ -3626,7 +3855,12 @@ def run(stack: contextlib.ExitStack) -> int:
     only.add_argument("--scans", action="store_true",
                       help="only the build and the scans phase, with the noisy bowl and the "
                            "ellipsoid shell (mesher snapshot, thin shells and bars against "
-                           "their oracles, the RealImpact harness on a scan double)")
+                           "their oracles, the RealImpact harness on a scan double), after "
+                           "both thin walls through the closure engine (p3)")
+    only.add_argument("--pencil", action="store_true",
+                      help="only the build and the general-pencil phase (the reference's "
+                           "check_eigensolver, the routing call, the 2.5%%-wall bowl through "
+                           "the closure engine)")
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -3705,9 +3939,16 @@ def run(stack: contextlib.ExitStack) -> int:
         log("debug: ok")
         return 0
     if args.scans:
+        # p3 first: phase n's noisy bowl returns no modes and fails its 0.1% bar
+        pencil_shells_check(device, card, full=True)
         scans_phase(device, card, full=True)
         log(f"[timing] whole script {time.perf_counter() - t_start:.1f} s ({card})")
         log("scans: ok")
+        return 0
+    if args.pencil:
+        pencil_phase(device, card)
+        log(f"[timing] whole script {time.perf_counter() - t_start:.1f} s ({card})")
+        log("pencil: ok")
         return 0
 
     wall("build done")
@@ -3894,6 +4135,13 @@ def run(stack: contextlib.ExitStack) -> int:
     debug = debug_phase(device, card, result)
 
     wall("phase o done")
+    # (p) the general-pencil form: the closure engine launches no kernel; phase n's thin
+    # shells lend their oracles to p3
+    impact.LAUNCHES = coupled.LAUNCHES = 0
+    pencil_phase(device, card, shells=scans["shells"])
+    assert impact.LAUNCHES == coupled.LAUNCHES == 0, "the eigensolves launched a kernel"
+
+    wall("phase p done")
     # timings
     log(f"[timing] solve_s {solve_s:.3f} render_s {render_s:.3f} sustained_block_median_ms "
         f"{block_median:.3f} ({card})")

@@ -65,10 +65,19 @@ def _col_dots(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _pcg_block(apply_a, precond, b: torch.Tensor, iters: int) -> torch.Tensor:
-    """Fixed-iteration preconditioned CG for A X = B, columns independent, X0 = 0."""
+    """Fixed-iteration preconditioned CG for A X = B, columns independent, X0 = 0.
+    `precond` maps residual panels to preconditioned panels: an object with `.apply` (the
+    AMG, applied as precond.apply(apply_a, r)), a callable, or a tensor, which is an
+    inverse diagonal (Jacobi)."""
+    if hasattr(precond, "apply"):
+        amg = precond
+        precond = lambda r: amg.apply(apply_a, r)  # noqa: E731
+    elif not callable(precond):
+        inv_diag = precond
+        precond = lambda r: inv_diag[:, None] * r  # noqa: E731
     x = torch.zeros_like(b)
     r = b
-    z = precond.apply(apply_a, r)
+    z = precond(r)
     p = z
     rz = _col_dots(r, z)
     for _ in range(iters):
@@ -77,7 +86,7 @@ def _pcg_block(apply_a, precond, b: torch.Tensor, iters: int) -> torch.Tensor:
         alpha = torch.where(p_ap > 0, rz / torch.where(p_ap == 0, 1.0, p_ap), 0.0)
         x = x + alpha * p
         r = r - alpha * ap
-        z = precond.apply(apply_a, r)
+        z = precond(r)
         rz_new = _col_dots(r, z)
         beta = torch.where(rz > 0, rz_new / torch.where(rz == 0, 1.0, rz), 0.0)
         p = z + beta * p

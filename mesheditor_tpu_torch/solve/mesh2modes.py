@@ -99,9 +99,9 @@ def mesh2modes(
     reuse: SolveReuse = SolveReuse(),
     cancelled: Optional[Callable[[], bool]] = None,
     progress: Optional[Callable[[float], None]] = None,
+    mesh=None,
     verbose: Optional[bool] = None,
     device=None,
-    mesh=None,
 ) -> ModalResult:
     """FEM modal analysis over quadratic (10-node) tetrahedral elements on `device` (the
     card when neither `device` nor `mesh` names one).

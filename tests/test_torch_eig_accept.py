@@ -97,10 +97,10 @@ def freq_rel(lam, ref):
 
 
 def solve_pencil(pencil, debug=False, **kw):
-    """lobpcg_pencil on the bar at CFG's tolerance and budget (keywords override). Returns
-    (result, what it moved, stdout lines)."""
+    """lobpcg_pencil on the bar at CFG's tolerance, budget and inner count (keywords
+    override). Returns (result, what it moved, stdout lines)."""
     ops, pre, _ = pencil
-    args = dict(tol=TOL, max_iters=BUDGET, small_n=0) | kw
+    args = dict(tol=TOL, max_iters=BUDGET, inner_iters=CFG.inner_iters, small_n=0) | kw
     before = counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):

@@ -260,9 +260,28 @@ def test_a_mesher_error_is_reported_and_any_other_error_propagates(doubles, tmp_
 
 
 def test_check_eigensolver_on_the_cpu():
-    """The device engine (small_n=0) on the 8x2x2 bar against scipy: the same audible
-    frequencies, far inside 0.1%."""
-    out = check_eigensolver.check((8, 2, 2), 20, 24, device="cpu")
-    assert out["n_dofs"] == 1275 and out["got_hz"] is not None
+    """--amg: the device engine (small_n=0) on the 8x2x2 bar against scipy: the same
+    audible frequencies, far inside 0.1%; the six rigid modes are the deflated exact
+    zeros."""
+    out = check_eigensolver.check((8, 2, 2), 20, 24, device="cpu", amg=True)
+    assert out["n_dofs"] == 1275 and out["got_hz"] is not None and out["engine"] == "amg"
     assert len(out["got_hz"]) == len(out["ref_hz"]) == 14
     assert out["max_rel_err"] < 1e-6
+    assert out["rigid"] == [0.0] * 6
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_check_eigensolver_default_is_the_closure_engine(f32):
+    """The script's default, as the reference's script: the closure engine on the bar's
+    operator callables, Jacobi CG in float64 (or, with f32, CG on the float32 sparse copies
+    of the pencil), settled in 7 +- 2 iterations with 3 + 50 panels an iteration, the same
+    audible frequencies as scipy within 1e-6, and rigid eigenvalues of its own (not the
+    deflated zeros) under 1e-6 of the first elastic one."""
+    out = check_eigensolver.check((8, 2, 2), 20, 24, device="cpu", f32=f32)
+    assert out["engine"] == ("closure, float32 pencil" if f32 else "closure, Jacobi")
+    assert len(out["got_hz"]) == len(out["ref_hz"]) == 14
+    assert abs(out["iterations"] - 7) <= 2
+    assert out["op_applications"] == 3 + out["iterations"] * 50
+    assert out["max_rel_err"] < 1e-6
+    rigid = np.abs(out["rigid"])
+    assert rigid.max() > 0 and rigid.max() < 1e-6 * (2 * np.pi * out["got_hz"][0]) ** 2

@@ -153,6 +153,69 @@ def test_public_names_match_the_reference_package(sub):
             assert type(mine) is type(theirs), name
 
 
+REF_PKG = REPO / "mesheditor_tpu"
+# Public signatures that keep a difference from the reference's, by (module, name), with
+# the reason. A port entry may also add a `device` parameter (the card unless the caller
+# names the CPU); nothing else differs.
+SIGNATURE_DIFFERENCES = {
+    # PyTorch draws from an explicit torch.Generator where JAX splits a key from a seed.
+    ("solve/amg.py", "spectral_seed"): "seed becomes generator",
+    # The reference keeps float32 copies of the element blocks for the TPU's preconditioner
+    # path; every block here is float64.
+    ("fem/assembly.py", "assemble_element_matrices"): "no dtype",
+    # The engine's internals: one float64 loop over the elastic spectrum with the
+    # caller's deflation, where the reference's float32 stage takes sizes and the rigid
+    # basis for its own.
+    ("solve/eigs.py", "ortho_lobpcg"): "the engine's own arguments",
+}
+
+
+def public_signatures(path: Path) -> dict:
+    """{name: [(parameter, kind), ...]} of a module's public functions and of its public
+    classes' public methods and __init__, read from its source."""
+    def params(fn):
+        a = fn.args
+        out = [(x.arg, "positional") for x in a.posonlyargs + a.args]
+        out += [("*" + a.vararg.arg, "var")] if a.vararg else []
+        out += [(x.arg, "keyword") for x in a.kwonlyargs]
+        return out + ([("**" + a.kwarg.arg, "var")] if a.kwarg else [])
+
+    def public(name):
+        return not name.startswith("_") or name == "__init__"
+
+    sigs = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.FunctionDef) and public(node.name):
+            sigs[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            sigs.update({f"{node.name}.{f.name}": params(f) for f in node.body
+                         if isinstance(f, ast.FunctionDef) and public(f.name)})
+    return sigs
+
+
+def test_public_signatures_match_the_reference_package():
+    """Every public function and method that a module of the port shares with its
+    counterpart in the reference takes the reference's parameters, by name, kind and
+    order, apart from an added `device` and the differences listed with their reasons; each
+    listed difference still exists."""
+    kept, differ = set(), []
+    for ref_path in sorted(REF_PKG.rglob("*.py")):
+        rel = ref_path.relative_to(REF_PKG).as_posix()
+        if not (PKG / rel).exists():
+            continue
+        ref, port = public_signatures(ref_path), public_signatures(PKG / rel)
+        for name in sorted(set(ref) & set(port)):
+            mine = [p for p in port[name] if p[0] != "device" or p in ref[name]]
+            if mine == ref[name]:
+                continue
+            if (rel, name) in SIGNATURE_DIFFERENCES:
+                kept.add((rel, name))
+            else:
+                differ.append((rel, name, ref[name], port[name]))
+    assert not differ, differ
+    assert kept == set(SIGNATURE_DIFFERENCES)
+
+
 def test_viewer_and_viz_import_without_jax_or_matplotlib():
     """The viewer's modules and viz import with JAX and matplotlib both out of reach (viz
     imports matplotlib only when a function is called)."""
