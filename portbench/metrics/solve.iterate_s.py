@@ -1,0 +1,6 @@
+"""solve.iterate_s: the mean over the window's solves of SolveProfile.iterate (the program's
+own stage record; its device stages end in a synchronize)."""
+
+
+def read(run):
+    return sum(u["iterate"] for u in run.units) / len(run.units) if run.units else None
