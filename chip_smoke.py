@@ -643,6 +643,7 @@ def coupled_call_kernels(scene, n_samples=512) -> list[str]:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from mesheditor_tpu_torch.profile import ranged
     from mesheditor_tpu_torch.synth import coupled
 
     sc = make_coupled(scene, "cuda")
@@ -654,7 +655,7 @@ def coupled_call_kernels(scene, n_samples=512) -> list[str]:
         coupled.resonate_coupled(*args)
         torch.cuda.synchronize()
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
-             and not e.name.startswith(("Memcpy", "Memset"))]
+             and not ranged(e.name) and not e.name.startswith(("Memcpy", "Memset"))]
     return ["mix" if "mix_kernel" in n else "coupled" if "coupled" in n else n for n in names]
 
 
@@ -767,9 +768,12 @@ def sustained_render(synth, voices, blocks=94, frames=512):
 
 def device_profile(run) -> tuple[float, dict]:
     """torch.profiler (CPU and CUDA activities) around run(), which ends in a sync: the
-    host wall in microseconds and {device operation name: [count, microseconds]}."""
+    host wall in microseconds and {device operation name: [count, microseconds]}. The
+    program's spans, which the profiler also lists on the device timeline, are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from mesheditor_tpu_torch.profile import ranged
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -777,7 +781,7 @@ def device_profile(run) -> tuple[float, dict]:
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and not ranged(e.name):
             entry = by_name.setdefault(e.name, [0, 0.0])
             entry[0] += 1
             entry[1] += e.time_range.elapsed_us()

@@ -72,11 +72,10 @@ def solve_surface(
         num_modes=settings.num_modes,
         num_fem_modes=max(settings.num_modes + 15, settings.num_modes * 3 // 2),
     )
-    with profile.scope("solve/mesh2modes", sync=device):
-        return mesh2modes(
-            tets, material, excite_positions, baked_scale, config, reuse, cancelled,
-            progress, verbose=verbose, device=device,
-        )
+    return mesh2modes(
+        tets, material, excite_positions, baked_scale, config, reuse, cancelled, progress,
+        verbose=verbose, device=device,
+    )
 
 
 def _tetrahedralize(positions, tris, tet_resolution: int, quality_tets: bool):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..fem.assembly import NodeSum
+from ..profile import scope
 
 
 def _restrict(w: torch.Tensor, agg: torch.Tensor, nagg: int, x: torch.Tensor) -> torch.Tensor:
@@ -94,9 +95,11 @@ class AmgPrecond:
         return self.deflate(e)
 
     def apply(self, apply_a, r: torch.Tensor) -> torch.Tensor:
-        """z = omega D^-1 r + coarse(r): the additive (BPX) two-level cycle."""
-        return (self.omega * self.inv_diag[:, None] * r
-                + self._coarse_correct(r, apply_a if self.sa else None))
+        """z = omega D^-1 r + coarse(r): the additive (BPX) two-level cycle (the
+        `solve/eigs/amg` span)."""
+        with scope("solve/eigs/amg"):
+            return (self.omega * self.inv_diag[:, None] * r
+                    + self._coarse_correct(r, apply_a if self.sa else None))
 
 
 def _components(element_nodes: np.ndarray, n_nodes: int):

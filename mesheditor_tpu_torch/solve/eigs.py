@@ -50,6 +50,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profile import scope
+
 # Soft-locking schedule: lock in steps of _LOCK_STEP columns with a _LOCK_MARGIN safety
 # gap below the observed settled prefix, so a transient settle regression never locks an
 # unconverged column out of its W/P corrections.
@@ -241,6 +243,11 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
     settled prefix at `tol` and at tol_acc and the iteration at which the gate opened ("-"
     while closed). The trace only prints what the exit rules read, so the answer is the
     same bit for bit with it on or off.
+
+    Each iteration is a `solve/eigs/iter` span (profile.py): `solve/eigs/basis` (the Ritz
+    vectors and the P block, then W's products, the projections, Cholesky-QR and the
+    Rayleigh-Ritz), `solve/eigs/precond` (the residuals and the CG block) and
+    `solve/eigs/read` (the host read, the exit rules, cancellation and locking).
     """
     import time
 
@@ -259,62 +266,71 @@ def ortho_lobpcg(ops, amat, precond, x_seed: torch.Tensor, nev: int, sigma: floa
     last_t = time.perf_counter()
 
     for it in range(1, max_iters + 1):
-        x, kx, mx = s @ c, ks @ c, ms @ c
-        # The certificate's residuals: the previous iteration's nev pairs, from the
-        # products this iteration forms anyway.
-        rel = _rel_residuals(kx[:, :nev], mx[:, :nev], theta[:nev], sigma)
-        has_p = s.shape[1] > p
-        if has_p:
-            c_wp = c[p:, lock:]
-            pdir, kp, mp = s[:, p:] @ c_wp, ks[:, p:] @ c_wp, ms[:, p:] @ c_wp
-        r = kx[:, lock:] - mx[:, lock:] * theta[lock:]
-        w = precond.deflate(_pcg_block(amat, precond, r, inner_iters))
-        kw, mw = ops.kmat(w), ops.mmat(w)
-        ops_count += 2 + inner_iters
-        pre2 = _col_dots(w, mw)
-        w, kw, mw = _project_out(x, kx, mx, w, kw, mw)
-        w, kw, mw = _kill_collapsed(pre2, w, kw, mw)
-        w, kw, mw = _chol_qr_m(w, kw, mw)
-        blocks = [(x, kx, mx), (w, kw, mw)]
-        if has_p:
-            pre2 = _col_dots(pdir, mp)
-            pdir, kp, mp = _project_out(x, kx, mx, pdir, kp, mp)
-            pdir, kp, mp = _project_out(w, kw, mw, pdir, kp, mp)
-            pdir, kp, mp = _kill_collapsed(pre2, pdir, kp, mp)
-            blocks.append(_chol_qr_m(pdir, kp, mp))
-        s, ks, ms = (torch.cat(t, 1) for t in zip(*blocks))
-        theta, c = _rayleigh_ritz(s.T @ ks, s.T @ ms, p)
-        read = torch.cat([theta, rel])
-        if ops.tp is not None:
-            # Every rank makes the host decisions below (exit, locked, done) from the
-            # group's first rank's values and residuals, so none can leave the loop while
-            # another waits in a collective, whatever the last bits of its own panels.
-            read = ops.tp.agree(read)
-            theta = read[:p]
-        read = read.cpu().numpy()
-        lam, rel_h = read[:p], read[p:]
+        with scope("solve/eigs/iter"):
+            with scope("solve/eigs/basis"):
+                x, kx, mx = s @ c, ks @ c, ms @ c
+                # The certificate's residuals: the previous iteration's nev pairs, from
+                # the products this iteration forms anyway.
+                rel = _rel_residuals(kx[:, :nev], mx[:, :nev], theta[:nev], sigma)
+                has_p = s.shape[1] > p
+                if has_p:
+                    c_wp = c[p:, lock:]
+                    pdir, kp, mp = s[:, p:] @ c_wp, ks[:, p:] @ c_wp, ms[:, p:] @ c_wp
+            with scope("solve/eigs/precond"):
+                r = kx[:, lock:] - mx[:, lock:] * theta[lock:]
+                w = precond.deflate(_pcg_block(amat, precond, r, inner_iters))
+            with scope("solve/eigs/basis"):
+                kw, mw = ops.kmat(w), ops.mmat(w)
+                ops_count += 2 + inner_iters
+                pre2 = _col_dots(w, mw)
+                w, kw, mw = _project_out(x, kx, mx, w, kw, mw)
+                w, kw, mw = _kill_collapsed(pre2, w, kw, mw)
+                w, kw, mw = _chol_qr_m(w, kw, mw)
+                blocks = [(x, kx, mx), (w, kw, mw)]
+                if has_p:
+                    pre2 = _col_dots(pdir, mp)
+                    pdir, kp, mp = _project_out(x, kx, mx, pdir, kp, mp)
+                    pdir, kp, mp = _project_out(w, kw, mw, pdir, kp, mp)
+                    pdir, kp, mp = _kill_collapsed(pre2, pdir, kp, mp)
+                    blocks.append(_chol_qr_m(pdir, kp, mp))
+                s, ks, ms = (torch.cat(t, 1) for t in zip(*blocks))
+                theta, c = _rayleigh_ritz(s.T @ ks, s.T @ ms, p)
+            with scope("solve/eigs/read"):
+                read = torch.cat([theta, rel])
+                if ops.tp is not None:
+                    # Every rank makes the host decisions below (exit, locked, done) from
+                    # the group's first rank's values and residuals, so none can leave the
+                    # loop while another waits in a collective, whatever the last bits of
+                    # its own panels.
+                    read = ops.tp.agree(read)
+                    theta = read[:p]
+                read = read.cpu().numpy()
+                lam, rel_h = read[:p], read[p:]
 
-        exit_rule = rules.check(it, lam, rel_h)
-        if exit_rule == "nan":
-            return None, "nan", it, ops_count, rules.gate
-        settled = rules.settled
-        if debug:
-            now = time.perf_counter()
-            dt, last_t = now - last_t, now
-            j = min(settled, nev - 1)
-            print(f"[ortho] it={it} settled={settled}/{nev} lam_j={lam[j]:.6e} "
-                  f"set_rel={rules.rel_set[j]:.2e} res_max={rel_h.max():.2e} dt={dt:.2f}s",
-                  flush=True)
-            if exit_rule or it == max_iters:
-                print(f"[ortho exit] it={it} exit={exit_rule or 'noconv'} settled={settled}/"
-                      f"{nev} accepted={rules.settled_acc}/{nev} tol={tol:.1e} "
-                      f"tol_acc={rules.tol_acc:.1e} gate={rules.gate or '-'}", flush=True)
-        if _cancelled(ops, callback, it, settled):
-            return None, "cancel", it, ops_count, rules.gate
-        if exit_rule:
-            x, kx, mx = s @ c[:, :nev], ks @ c[:, :nev], ms @ c[:, :nev]
-            res = torch.linalg.norm(kx - mx * theta[:nev], dim=0).cpu().numpy()
-            return (lam[:nev].copy(), x, res, exit_rule), "done", it, ops_count, rules.gate
-        bucket = min(max(settled - _LOCK_MARGIN, 0) // _LOCK_STEP * _LOCK_STEP, lock_cap)
-        lock = max(lock, bucket)
+                exit_rule = rules.check(it, lam, rel_h)
+                if exit_rule == "nan":
+                    return None, "nan", it, ops_count, rules.gate
+                settled = rules.settled
+                if debug:
+                    now = time.perf_counter()
+                    dt, last_t = now - last_t, now
+                    j = min(settled, nev - 1)
+                    print(f"[ortho] it={it} settled={settled}/{nev} lam_j={lam[j]:.6e} "
+                          f"set_rel={rules.rel_set[j]:.2e} res_max={rel_h.max():.2e} "
+                          f"dt={dt:.2f}s", flush=True)
+                    if exit_rule or it == max_iters:
+                        print(f"[ortho exit] it={it} exit={exit_rule or 'noconv'} "
+                              f"settled={settled}/{nev} accepted={rules.settled_acc}/{nev} "
+                              f"tol={tol:.1e} tol_acc={rules.tol_acc:.1e} "
+                              f"gate={rules.gate or '-'}", flush=True)
+                if _cancelled(ops, callback, it, settled):
+                    return None, "cancel", it, ops_count, rules.gate
+                if exit_rule:
+                    x, kx, mx = s @ c[:, :nev], ks @ c[:, :nev], ms @ c[:, :nev]
+                    res = torch.linalg.norm(kx - mx * theta[:nev], dim=0).cpu().numpy()
+                    return ((lam[:nev].copy(), x, res, exit_rule), "done", it, ops_count,
+                            rules.gate)
+                bucket = min(max(settled - _LOCK_MARGIN, 0) // _LOCK_STEP * _LOCK_STEP,
+                             lock_cap)
+                lock = max(lock, bucket)
     return None, "noconv", max_iters, ops_count, rules.gate

@@ -31,6 +31,7 @@ from .._device import resolve_device, synchronize
 from ..fem.assembly import assemble_element_matrices, filter_degenerate, pencil_diagonals
 from ..fem.mass_properties import compute_mass_properties
 from ..fem.quad_mesh import build_quad_mesh
+from ..profile import scope
 from ..types import (
     AcousticMaterialProperties,
     MassProperties,
@@ -116,12 +117,24 @@ def mesh2modes(
     group calls this with the same arguments, applies its slice of the elements and sums
     the partials by all_reduce (the reference's reduction points,
     src/audio/mesh2modes.cpp:379-398), and every rank returns the same eigenvalues.
+
+    The call is the `solve/mesh2modes` span (profile.py), which waits for the device
+    under `profile.enabled`; its stages are `solve/assemble`, `solve/amg` and
+    `solve/eigs`, on the boundaries of their SolveProfile fields.
     """
     if mesh is not None:
         if device is not None and resolve_device(device) != mesh.device:
             raise ValueError(f"device {device!r} is not the mesh's device {mesh.device}")
         device = mesh.device
     device = resolve_device("cuda" if device is None else device)
+    with scope("solve/mesh2modes", sync=device):
+        return _mesh2modes(tets, material, excite_positions, baked_scale, config, reuse,
+                           cancelled, progress, mesh, verbose, device)
+
+
+def _mesh2modes(tets, material, excite_positions, baked_scale, config, reuse, cancelled,
+                progress, mesh, verbose, device) -> ModalResult:
+    """mesh2modes on its resolved device."""
     if verbose is None:
         verbose = bool(os.environ.get("MESHEDITOR_TPU_VERBOSE"))
     profile = SolveProfile()
@@ -143,14 +156,15 @@ def mesh2modes(
     quad = build_quad_mesh(kept, tets.points.shape[0])
     profile.quad_mesh = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    ops = assemble_element_matrices(tets.points, kept, material, quad, device=device)
-    if mesh is not None:
-        from ..parallel.sharding import shard_element_ops
+    with scope("solve/assemble"):
+        t0 = time.perf_counter()
+        ops = assemble_element_matrices(tets.points, kept, material, quad, device=device)
+        if mesh is not None:
+            from ..parallel.sharding import shard_element_ops
 
-        ops = shard_element_ops(ops, mesh)
-    synchronize(device)
-    profile.assemble = time.perf_counter() - t0
+            ops = shard_element_ops(ops, mesh)
+        synchronize(device)
+        profile.assemble = time.perf_counter() - t0
     profile.dofs = ops.n_dofs
     profile.stiffness_nonzeros = int(kept.shape[0]) * 30 * 30  # element-form storage
     if cancelled and cancelled():
@@ -168,23 +182,24 @@ def mesh2modes(
     if progress:
         progress(0.3)
 
-    t0 = time.perf_counter()
-    k_diag, m_diag = pencil_diagonals(ops)
-    # Preconditioner setup = the reference's Factorize stage: the rigid-body aggregation
-    # AMG replaces the sparse Cholesky factorization.
-    precond = None
-    if config.use_amg and n > config.small_n:
-        from .amg import build_amg
+    with scope("solve/amg"):
+        t0 = time.perf_counter()
+        k_diag, m_diag = pencil_diagonals(ops)
+        # Preconditioner setup = the reference's Factorize stage: the rigid-body
+        # aggregation AMG replaces the sparse Cholesky factorization.
+        precond = None
+        if config.use_amg and n > config.small_n:
+            from .amg import build_amg
 
-        try:
-            precond = build_amg(tets.points, kept, quad, ops, k_diag, m_diag, sigma)
-        except (torch.linalg.LinAlgError, np.linalg.LinAlgError) as ex:
-            # lobpcg_pencil then answers on the host (counted in HOST_SOLVES).
-            warnings.warn(f"AMG build failed ({ex}); the eigensolve falls back to the host")
-        if ops.tp is not None and ops.tp.any(precond is None):
-            precond = None  # the group takes the host path together
-    synchronize(device)
-    profile.factorize = time.perf_counter() - t0
+            try:
+                precond = build_amg(tets.points, kept, quad, ops, k_diag, m_diag, sigma)
+            except (torch.linalg.LinAlgError, np.linalg.LinAlgError) as ex:
+                # lobpcg_pencil then answers on the host (counted in HOST_SOLVES).
+                warnings.warn(f"AMG build failed ({ex}); the eigensolve falls back to the host")
+            if ops.tp is not None and ops.tp.any(precond is None):
+                precond = None  # the group takes the host path together
+        synchronize(device)
+        profile.factorize = time.perf_counter() - t0
 
     x0 = None
     tol = config.tolerance
@@ -198,24 +213,25 @@ def mesh2modes(
             progress(0.3 + 0.65 * min(settled / max(fem_n_modes, 1), 1.0))
         return bool(cancelled and cancelled())
 
-    t0 = time.perf_counter()
-    eig = lobpcg_pencil(
-        ops,
-        fem_n_modes,
-        sigma=sigma,
-        precond=precond,
-        x0=x0,
-        guard=config.guard,
-        tol=tol,
-        max_iters=config.max_restarts,
-        inner_iters=config.inner_iters,
-        callback=callback,
-        small_n=config.small_n,
-        host_fallback_n=config.host_fallback_n,
-        tol_accept=config.tol_accept,
-    )
-    synchronize(device)
-    profile.iterate = time.perf_counter() - t0
+    with scope("solve/eigs"):
+        t0 = time.perf_counter()
+        eig = lobpcg_pencil(
+            ops,
+            fem_n_modes,
+            sigma=sigma,
+            precond=precond,
+            x0=x0,
+            guard=config.guard,
+            tol=tol,
+            max_iters=config.max_restarts,
+            inner_iters=config.inner_iters,
+            callback=callback,
+            small_n=config.small_n,
+            host_fallback_n=config.host_fallback_n,
+            tol_accept=config.tol_accept,
+        )
+        synchronize(device)
+        profile.iterate = time.perf_counter() - t0
     profile.op_applications = eig.op_applications
     profile.restarts = eig.iterations
     if eig.eigenvalues.size == 0:

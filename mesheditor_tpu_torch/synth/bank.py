@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profile import count
 from ..types import ModalModes
 from .tracks import TRACK_SAMPLES
 
@@ -85,7 +86,14 @@ class ImpactTable:
         })
 
     def to_numpy(self) -> dict:
-        return {f: getattr(self, f).cpu().numpy().copy() for f in self.FIELDS}
+        """One read of the device per field, each counted as `play/reads`."""
+        return {f: _read(getattr(self, f)) for f in self.FIELDS}
+
+
+def _read(x: torch.Tensor) -> np.ndarray:
+    """A host copy of a play table's field: one read of the device, counted."""
+    count("play/reads")
+    return x.cpu().numpy().copy()
 
 
 # A voice's four drive rows: normal, each surface's geometric tangential, frictional
@@ -157,7 +165,7 @@ class VoiceTable:
         })
 
     def to_numpy(self) -> dict:
-        return {f: getattr(self, f).cpu().numpy().copy() for f in self.FIELDS}
+        return {f: _read(getattr(self, f)) for f in self.FIELDS}
 
     def replace(self, **fields) -> "VoiceTable":
         return VoiceTable(**{f: fields.get(f, getattr(self, f)) for f in self.FIELDS})

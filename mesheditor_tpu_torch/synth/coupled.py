@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..profile import scope
 from .bank import BankParams, BankState, ImpactTable, TrackPool, VoiceTable
 from .impact import _check, _regroup
 from .render import (_impact_force_curves, finish_block, impact_click, impact_gain_rows,
@@ -293,12 +294,15 @@ def render_block_coupled(params: BankParams, state: BankState, impacts: ImpactTa
     """Coupled block render (arguments as `coupled_inputs`). With `shard` the mix is summed
     over the group before the click is added, and each voice's carries come from the rank
     that owns its object. Returns (state, impacts, voices, out (num_samples,) float32)."""
-    args, vb, click = coupled_inputs(params, state, impacts, voices, pool, num_samples,
-                                     click_gain, sustain_level, coupling, n_slots, n_per_obj,
-                                     shard)
-    mix, z_re, z_im, rm_out, pen_out = resonate_coupled(*args)
-    if shard is not None:
-        mix = shard.sum(mix)
-    state, impacts, voices = finish_block(params, impacts, z_re, z_im, num_samples, voices,
-                                          vb, rm_out, pen_out, shard)
+    with scope("play/precompute"):
+        args, vb, click = coupled_inputs(params, state, impacts, voices, pool, num_samples,
+                                         click_gain, sustain_level, coupling, n_slots,
+                                         n_per_obj, shard)
+    with scope("play/resonate"):
+        mix, z_re, z_im, rm_out, pen_out = resonate_coupled(*args)
+        if shard is not None:
+            mix = shard.sum(mix)
+    with scope("play/finish"):
+        state, impacts, voices = finish_block(params, impacts, z_re, z_im, num_samples,
+                                              voices, vb, rm_out, pen_out, shard)
     return state, impacts, voices, mix + click

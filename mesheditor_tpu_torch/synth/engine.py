@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profile import scope
 from ..types import ModalModes
 from .bank import (VOICE_F32_COLS, VOICE_I32_COLS, BankParams, BankState, ImpactTable,
                    TrackPool, VoiceTable, apply_voice_state, build_bank, tune_object)
@@ -293,50 +294,51 @@ class ModalSynth:
         upload each field once."""
         if not self._pending_events:
             return
-        n_obj = self.n_objects
-        n_points = self.params.shapes.shape[1]
-        host = self.impacts.to_numpy()
-        silenced: list[int] = []
-        for e in self._pending_events:
-            if e.obj >= n_obj:
-                continue
-            if e.kind == "impact" and e.pulse_step > 0:
-                free = np.flatnonzero(~host["active"])
-                if free.size == 0:
-                    self.events_dropped += 1
+        with scope("play/events"):
+            n_obj = self.n_objects
+            n_points = self.params.shapes.shape[1]
+            host = self.impacts.to_numpy()
+            silenced: list[int] = []
+            for e in self._pending_events:
+                if e.obj >= n_obj:
                     continue
-                i = int(free[0])
-                host["active"][i] = True
-                host["obj"][i] = e.obj
-                # Out-of-range sample points clamp, as the reference's gather does.
-                host["expos"][i] = min(max(e.expos, 0), n_points - 1)
-                host["j"][i] = e.j
-                host["pulse_step"][i] = e.pulse_step
-                host["gamma"][i] = e.pulse_gamma
-                host["accel_amp"][i] = e.accel_amp
-                host["age"][i] = 0
-                host["total"][i] = int(np.ceil(1.0 / e.pulse_step))
-            elif e.kind == "silence":
-                silenced.append(e.obj)
-                host["active"] &= host["obj"] != e.obj
-                # Silence ends the object's voices too.
-                for vid, row in list(self._voice_ids.items()):
-                    if int(self._voice_i32[row, 0]) == e.obj and self._voice_i32[row, 8]:
-                        self._clear_voice_row(row)
-                        del self._voice_ids[vid]
-                        self._upload_voices()
-        self._pending_events.clear()
-        live = host["active"]
-        self._max_impacts_per_object = int(
-            np.bincount(host["obj"][live]).max() if live.any() else 0
-        )
-        self.impacts = ImpactTable.from_numpy(host, self.device)
-        rows = [r for r in map(self._row, silenced) if r is not None]
-        if rows:
-            mask = np.ones(self.params.coeff_re.shape[0], np.float32)
-            mask[rows] = 0.0
-            m = torch.as_tensor(mask, device=self.device)[:, None]
-            self.state = BankState(z_re=self.state.z_re * m, z_im=self.state.z_im * m)
+                if e.kind == "impact" and e.pulse_step > 0:
+                    free = np.flatnonzero(~host["active"])
+                    if free.size == 0:
+                        self.events_dropped += 1
+                        continue
+                    i = int(free[0])
+                    host["active"][i] = True
+                    host["obj"][i] = e.obj
+                    # Out-of-range sample points clamp, as the reference's gather does.
+                    host["expos"][i] = min(max(e.expos, 0), n_points - 1)
+                    host["j"][i] = e.j
+                    host["pulse_step"][i] = e.pulse_step
+                    host["gamma"][i] = e.pulse_gamma
+                    host["accel_amp"][i] = e.accel_amp
+                    host["age"][i] = 0
+                    host["total"][i] = int(np.ceil(1.0 / e.pulse_step))
+                elif e.kind == "silence":
+                    silenced.append(e.obj)
+                    host["active"] &= host["obj"] != e.obj
+                    # Silence ends the object's voices too.
+                    for vid, row in list(self._voice_ids.items()):
+                        if int(self._voice_i32[row, 0]) == e.obj and self._voice_i32[row, 8]:
+                            self._clear_voice_row(row)
+                            del self._voice_ids[vid]
+                            self._upload_voices()
+            self._pending_events.clear()
+            live = host["active"]
+            self._max_impacts_per_object = int(
+                np.bincount(host["obj"][live]).max() if live.any() else 0
+            )
+            self.impacts = ImpactTable.from_numpy(host, self.device)
+            rows = [r for r in map(self._row, silenced) if r is not None]
+            if rows:
+                mask = np.ones(self.params.coeff_re.shape[0], np.float32)
+                mask[rows] = 0.0
+                m = torch.as_tensor(mask, device=self.device)[:, None]
+                self.state = BankState(z_re=self.state.z_re * m, z_im=self.state.z_im * m)
 
     def _row(self, obj: int):
         """The bank row of object `obj`, or None when another rank's bank holds it."""
@@ -347,20 +349,28 @@ class ModalSynth:
     def render(self, num_samples: int) -> torch.Tensor:
         """One block of mono modal synthesis, returned as a device tensor (no host sync per
         block, so back-to-back blocks queue on the device). A block with a live voice goes
-        through the coupled render, a voice-free one through the impact render."""
-        self._drain_events()
-        self._adopt_voices()
-        per_obj = 0
-        if self._voice_ids:
-            rows = list(self._voice_ids.values())
-            per_obj = int(np.bincount(self._voice_i32[rows, 0]).max())
-        self.state, self.impacts, self.voices, out = render_block(
-            self.params, self.state, self.impacts, self.voices, self.pool, num_samples,
-            self.click_gain, self.sustain_level, self.coupling,
-            n_slots=self._max_impacts_per_object, n_per_obj=per_obj, shard=self.shard,
-        )
-        self._idle_samples += num_samples
-        return out
+        through the coupled render, a voice-free one through the impact render.
+
+        The call is the `play/block` span (profile.py); its phases are `play/events` (the
+        strike drain, when strikes wait), `play/voices` (the voice publish, once a set was
+        published), `play/precompute`, `play/resonate` and `play/finish`, and `play/reads`
+        counts its reads of the device."""
+        with scope("play/block"):
+            self._drain_events()
+            if self._published is not None or self._voice_ids:
+                with scope("play/voices"):
+                    self._adopt_voices()
+            per_obj = 0
+            if self._voice_ids:
+                rows = list(self._voice_ids.values())
+                per_obj = int(np.bincount(self._voice_i32[rows, 0]).max())
+            self.state, self.impacts, self.voices, out = render_block(
+                self.params, self.state, self.impacts, self.voices, self.pool, num_samples,
+                self.click_gain, self.sustain_level, self.coupling,
+                n_slots=self._max_impacts_per_object, n_per_obj=per_obj, shard=self.shard,
+            )
+            self._idle_samples += num_samples
+            return out
 
     def render_seconds(self, seconds: float, block_size: int = 512,
                        fuse: bool = True) -> np.ndarray:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..profile import scope
 from .bank import BankParams, BankState, ImpactTable
 from .render import _impact_force_curves, finish_block, impact_click, impact_gain_rows
 
@@ -152,14 +153,18 @@ def render_block_impacts(params: BankParams, state: BankState, impacts: ImpactTa
     rank's impacts, the mix is summed over the group and the click, a sum over the whole
     table, is added once after it. Returns (state, impacts, out (num_samples,) float32)."""
     n_obj = params.coeff_re.shape[0]
-    force, prev_force = _impact_force_curves(impacts, num_samples)  # (I, S), (I,)
-    click = impact_click(impacts, force, prev_force, click_gain)
-    here = impacts if shard is None else shard.local_impacts(impacts)
-    gain_rok, force_sro = _regroup(here, impact_gain_rows(params, here), force, n_obj,
-                                   n_slots)
-    mix, z_re, z_im = resonate(params.coeff_re, params.coeff_im, params.out_gain, gain_rok,
-                               force_sro, state.z_re, state.z_im)
-    if shard is not None:
-        mix = shard.sum(mix)
-    state, impacts, _ = finish_block(params, impacts, z_re, z_im, num_samples, shard=shard)
+    with scope("play/precompute"):
+        force, prev_force = _impact_force_curves(impacts, num_samples)  # (I, S), (I,)
+        click = impact_click(impacts, force, prev_force, click_gain)
+        here = impacts if shard is None else shard.local_impacts(impacts)
+        gain_rok, force_sro = _regroup(here, impact_gain_rows(params, here), force, n_obj,
+                                       n_slots)
+    with scope("play/resonate"):
+        mix, z_re, z_im = resonate(params.coeff_re, params.coeff_im, params.out_gain,
+                                   gain_rok, force_sro, state.z_re, state.z_im)
+        if shard is not None:
+            mix = shard.sum(mix)
+    with scope("play/finish"):
+        state, impacts, _ = finish_block(params, impacts, z_re, z_im, num_samples,
+                                         shard=shard)
     return state, impacts, mix + click

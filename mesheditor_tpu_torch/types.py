@@ -101,8 +101,7 @@ class SolverConfig:
 class SolveProfile:
     """Wall-clock seconds per solve stage, with problem-size counters.
 
-    Schema mirrors the reference's modal::SolveProfile (src/audio/mesh2modes.h:30-50);
-    `op_solve` is the shift-inverted (preconditioner) work, a subset of `iterate`.
+    Schema mirrors the reference's modal::SolveProfile (src/audio/mesh2modes.h:30-50).
     """
 
     mass_props: float = 0.0
@@ -111,7 +110,6 @@ class SolveProfile:
     sample_excite: float = 0.0
     factorize: float = 0.0  # Preconditioner setup (AMG build)
     iterate: float = 0.0
-    op_solve: float = 0.0
     extract: float = 0.0
     dofs: int = 0
     stiffness_nonzeros: int = 0
@@ -121,7 +119,7 @@ class SolveProfile:
     def __iadd__(self, o: "SolveProfile") -> "SolveProfile":
         for f in (
             "mass_props", "quad_mesh", "assemble", "sample_excite",
-            "factorize", "iterate", "op_solve", "extract",
+            "factorize", "iterate", "extract",
             "dofs", "stiffness_nonzeros", "op_applications", "restarts",
         ):
             setattr(self, f, getattr(self, f) + getattr(o, f))
