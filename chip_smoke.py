@@ -29,7 +29,8 @@ failure exits non-zero before the final line):
      inputs (output < 2e-5 x peak, state rtol 1e-4 / atol 1e-9, impact active/age equal,
      2xS bit-equal to S then S), the state bit-identical to the plain version's on the same
      card tensors, its device time (CUDA events over back-to-back launches of the bound C
-     entry), the wrapper's host-clock time and the plain version's;
+     entry), the wrapper's host-clock time and the plain version's; the strike precompute
+     kernel bit-equal to the plain chain at box.impacts' shapes, and the same three times;
   4. golden render: the fixed synthetic 8-object bank, RMS inside (8.82e-3, 9.10e-3);
   5. main path, solve: mesh2modes on the box (warm-up, then timed): 44,289 dofs, 250
      modes, f1 within 1e-4 of 5103.1 Hz, answered on the device, lowest 20 elastic modes
@@ -397,7 +398,7 @@ def check_kernel(name, bank, imp, n_samples, n_slots, timed=False):
     import torch
 
     from mesheditor_tpu_torch import convert
-    from mesheditor_tpu_torch.synth import impact
+    from mesheditor_tpu_torch.synth import impact, strikes
     from mesheditor_tpu_torch.synth.render import _impact_force_curves, impact_gain_rows
 
     def make(device):
@@ -420,8 +421,8 @@ def check_kernel(name, bank, imp, n_samples, n_slots, timed=False):
     stats = {"max_abs_err": err, "rel_err": err / peak}
     if timed:
         force, _prev = _impact_force_curves(ic, n_samples)
-        gain_rok, force_sro = impact._regroup(ic, impact_gain_rows(pc, ic), force,
-                                              pc.coeff_re.shape[0], n_slots)
+        gain_rok, force_sro = strikes._regroup(ic, impact_gain_rows(pc, ic), force,
+                                               pc.coeff_re.shape[0], n_slots)
         args = (pc.coeff_re, pc.coeff_im, pc.out_gain, gain_rok, force_sro, sc.z_re, sc.z_im)
         mix_k, zr_k, zi_k = impact.resonate(*args)
         mix_p, zr_p, zi_p = impact._resonate_plain(*args)
@@ -435,6 +436,79 @@ def check_kernel(name, bank, imp, n_samples, n_slots, timed=False):
         stats["plain_ms"] = median_ms(lambda: impact._resonate_plain(*args),
                                       torch.cuda.synchronize)
     log(f"[kernel] {name}: S={n_samples} R={n_slots} " + json.dumps(stats))
+    return stats
+
+
+def strike_scene_bench(rng, live_objs, capacity=128):
+    """box.impacts' strike precompute shapes: scene_bench's 64 x 256 bank with 10 sample
+    points and the engine's 128-row impact table, live strikes on `live_objs` (a repeat
+    raises R) among retired rows that keep stale values; 0.5-3 ms pulses at 48 kHz."""
+    bank, _imp = scene_bench(rng)
+    step = (1.0 / rng.integers(24, 145, capacity)).astype(np.float32)
+    imp = {
+        "active": np.zeros(capacity, bool), "obj": rng.integers(0, 64, capacity),
+        "expos": rng.integers(0, 10, capacity), "j": rng.standard_normal((capacity, 3)) * 0.05,
+        "pulse_step": step, "gamma": np.pi / 2 * step,
+        "accel_amp": rng.uniform(0, 2e-3, capacity), "age": rng.integers(0, 400, capacity),
+        "total": np.ceil(1.0 / step.astype(np.float64)).astype(np.int32),
+    }
+    rows = rng.choice(capacity, len(live_objs), replace=False)
+    imp["active"][rows] = True
+    imp["obj"][rows] = live_objs
+    imp["age"][rows] = [rng.integers(0, t) for t in imp["total"][rows]]
+    return bank, imp
+
+
+def strike_flops_bytes(n_imp, n_live, n_kept, n_obj, n_modes, n_slots, n_samples):
+    """Operations and bytes of one strike precompute: per live row and sample two forces
+    (3 each, the sine counted as one) and the click step (4); per kept slot and mode the
+    gain row (6). Reads the table (41 bytes a row) and the kept shape rows; writes the
+    three outputs whole."""
+    flops = n_samples * n_live * 10 + n_kept * n_modes * 6
+    nbytes = (41 * n_imp + 12 * n_kept * n_modes
+              + 4 * (n_samples * n_slots * n_obj + n_slots * n_obj * n_modes + n_samples))
+    return float(flops), float(nbytes)
+
+
+def check_strike_kernel(card, n_samples=512) -> dict:
+    """The strike precompute kernel against the plain chain on the same card tensors at
+    box.impacts' shapes, bit for bit: one live strike, three with two on one object, three
+    on one object, each at R = the live maximum and one less (a row dropped; R = 0 writes
+    only the click). At two on one object (R = 2): its device time (CUDA events over
+    back-to-back launches of the bound C entry), the wrapper's host-clock time and the
+    plain chain's, and its bound. Returns the stats dict."""
+    import torch
+
+    from mesheditor_tpu_torch import convert
+    from mesheditor_tpu_torch.synth import strikes
+
+    rng = np.random.default_rng(20261018)
+    stats = {}
+    for live in ((3,), (3, 17, 17), (5, 5, 5)):
+        bank, imp = strike_scene_bench(rng, live)
+        params, _state = convert.bank(**bank, device="cuda")
+        table = convert.impact_table(device="cuda", **imp)
+        r = int(np.bincount(live).max())
+        for n_slots in (r, r - 1):
+            launch, got = strikes._bind(params, table, n_samples, 1.0, n_slots)
+            launch()
+            want = strikes._plain(params, table, n_samples, 1.0, n_slots)
+            for what, g, w in zip(("gain_rok", "force_sro", "click"), got, want):
+                assert torch.equal(g.view(torch.int32), w.view(torch.int32)), \
+                    f"strike_precompute {live} R={n_slots}: {what} differs from the plain chain"
+        if live != (3, 17, 17):
+            continue
+        launch = strikes._bind(params, table, n_samples, 1.0, r)[0]
+        stats["ms"] = event_ms(launch)
+        stats["wrapper_host_ms"] = median_ms(
+            lambda: strikes.strike_precompute(params, table, n_samples, 1.0, r),
+            torch.cuda.synchronize)
+        stats["plain_ms"] = median_ms(
+            lambda: strikes._plain(params, table, n_samples, 1.0, r), torch.cuda.synchronize)
+        stats["bound_ms"], stats["bound_by"] = bound(*strike_flops_bytes(
+            128, len(live), len(live), 64, 256, r, n_samples))
+    log(f"[kernel] strike_precompute: bit-equal to the plain chain at 64x256, 128 rows, "
+        f"S={n_samples}; at R=2 " + json.dumps(stats) + f" ({card})")
     return stats
 
 
@@ -3971,6 +4045,7 @@ def run(stack: contextlib.ExitStack) -> int:
     log(f"[kernel] impact_resonator device {bench_stats['ms']:.4f} ms (events), wrapper "
         f"{bench_stats['wrapper_host_ms']:.4f} ms (host clock), plain "
         f"{bench_stats['plain_ms']:.3f} ms at 64x256, S=16384 ({card})")
+    strike_stats = check_strike_kernel(card)
 
     if args.kernels:
         coupled_kernel_phase(card)
@@ -4203,6 +4278,12 @@ def run(stack: contextlib.ExitStack) -> int:
         "max_abs_err": c512["max_abs_err"],
         "ms": c512["ms"], "plain_ms": c512["plain_ms"],
         "bound_ms": c512["bound_ms"], "bound_by": c512["bound_by"], "library_ms": None,
+    }, {
+        "name": "strike_precompute", "route": "cuda",
+        "source": "mesheditor_tpu_torch/csrc/strike_precompute.cu", "replaces": None,
+        "ms": strike_stats["ms"], "plain_ms": strike_stats["plain_ms"],
+        "bound_ms": strike_stats["bound_ms"], "bound_by": strike_stats["bound_by"],
+        "library_ms": None,
     }]}))
     log(f"[timing] whole script {time.perf_counter() - t_start:.1f} s ({card})")
     log(card)

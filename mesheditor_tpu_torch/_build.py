@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_SOURCES = (_PKG / "csrc" / "impact_resonator.cu", _PKG / "csrc" / "coupled_resonator.cu")
+_SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "impact_resonator.cu", "coupled_resonator.cu", "strike_precompute.cu"))
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -105,6 +106,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.coupled_resonator.restype = i32
     lib.coupled_resonator_plan.argtypes = [i32, i32, i32, ptr]
     lib.coupled_resonator_plan.restype = i32
+    lib.strike_precompute.argtypes = [ptr] * 13 + [i32] * 7 + [ctypes.c_float, ptr]
+    lib.strike_precompute.restype = i32
     _LIB = lib
     return lib
 

@@ -24,9 +24,9 @@ import torch
 
 from ..profile import scope
 from .bank import BankParams, BankState, ImpactTable, TrackPool, VoiceTable
-from .impact import _check, _regroup
-from .render import (_impact_force_curves, finish_block, impact_click, impact_gain_rows,
-                     voice_block)
+from .impact import _check
+from .render import finish_block, voice_block
+from .strikes import strike_precompute
 
 LAUNCHES = 0  # kernel launches (CUDA tensors only; the plain version is not counted)
 
@@ -257,15 +257,13 @@ def coupled_inputs(params: BankParams, state: BankState, impacts: ImpactTable,
     replicated ones: the kernel's arguments hold this rank's impacts and voices, the click
     all impacts. Returns (args, voice_block, click)."""
     n_obj = params.coeff_re.shape[0]
-    force, prev_force = _impact_force_curves(impacts, num_samples)
-    click = impact_click(impacts, force, prev_force, click_gain)
+    gain_rok, force_sro, click = strike_precompute(params, impacts, num_samples, click_gain,
+                                                   n_slots, shard)
     if shard is not None:
-        impacts, voices = shard.local_impacts(impacts), shard.local_voices(voices)
+        voices = shard.local_voices(voices)
     live = voices.active & (voices.obj >= 0) & (voices.obj < n_obj)
     if n_per_obj is None:  # a device sync on a CUDA table
         n_per_obj = int(torch.bincount(voices.obj[live].long(), minlength=1).max())
-    gain_rok, force_sro = _regroup(impacts, impact_gain_rows(params, impacts), force, n_obj,
-                                   n_slots)
 
     vb = voice_block(params, voices, pool, num_samples, coupling)
     gain_n, gain_geo0, gain_geo1, gain_fric, read_gain = vb.gains

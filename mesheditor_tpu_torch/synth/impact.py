@@ -10,9 +10,9 @@ On a CUDA tensor it launches csrc/impact_resonator.cu (and raises if that fails)
 tensor it runs `_resonate_plain`, the same recurrence in plain PyTorch. There is no other
 route: nothing here falls back from the card to the plain version.
 
-Impacts regroup from the flat table into (slot, object) factored form: R = the largest
-number of live impacts on one object, which the kernel takes at run time, so any number of
-impacts per object and any sample count go through the kernel.
+Impacts regroup from the flat table into (slot, object) factored form (synth/strikes.py):
+R = the largest number of live impacts on one object, which the kernel takes at run time, so
+any number of impacts per object and any sample count go through the kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ import torch
 
 from ..profile import scope
 from .bank import BankParams, BankState, ImpactTable
-from .render import _impact_force_curves, finish_block, impact_click, impact_gain_rows
+from .render import finish_block
+from .strikes import strike_precompute
 
 LAUNCHES = 0  # kernel launches (CUDA tensors only; the plain version is not counted)
 
@@ -116,34 +117,6 @@ def resonate(coeff_re, coeff_im, out_gain, gain_rok, force_sro, z_re, z_im):
     return out
 
 
-def _regroup(impacts: ImpactTable, gain_imp, force_imp, n_obj: int, n_slots: int):
-    """Factor the flat impact table into (slot, object) form: impacts sorted by object,
-    ranked within their object; rank r of object o lands in slot (r, o). Impacts ranked
-    >= n_slots are dropped (the engine sizes n_slots to the live maximum).
-    Returns (gain_rok (R, O, K), force_sro (S, R, O))."""
-    n_imp = impacts.active.shape[0]
-    n_modes = gain_imp.shape[1]
-    n_samples = force_imp.shape[1]
-    dev = gain_imp.device
-    idx = torch.arange(n_imp, device=dev)
-    obj = torch.where(impacts.active, impacts.obj.long(), n_obj)
-    order = torch.argsort(obj * (n_imp + 1) + idx)
-    sorted_obj = obj[order]
-    is_start = torch.ones(n_imp, dtype=torch.bool, device=dev)
-    is_start[1:] = sorted_obj[1:] != sorted_obj[:-1]
-    rank = idx - torch.cummax(torch.where(is_start, idx, 0), 0).values
-    keep = (sorted_obj < n_obj) & (rank < n_slots)
-    # Dropped impacts add exact zeros into slot 0; kept ones own distinct slots.
-    slot = torch.where(keep, rank * n_obj + sorted_obj, 0)
-    gain_rok = torch.zeros(n_slots * n_obj, n_modes, dtype=torch.float32, device=dev)
-    force_sro = torch.zeros(n_samples, n_slots * n_obj, dtype=torch.float32, device=dev)
-    if n_slots:
-        gain_rok.index_add_(0, slot, torch.where(keep[:, None], gain_imp[order], 0.0))
-        force_sro.index_add_(1, slot, torch.where(keep[None, :], force_imp[order].T, 0.0))
-    return (gain_rok.reshape(n_slots, n_obj, n_modes),
-            force_sro.reshape(n_samples, n_slots, n_obj))
-
-
 def render_block_impacts(params: BankParams, state: BankState, impacts: ImpactTable,
                          num_samples: int, click_gain: float = 1.0, n_slots: int = 4,
                          shard=None):
@@ -152,13 +125,9 @@ def render_block_impacts(params: BankParams, state: BankState, impacts: ImpactTa
     of objects and the impact table the whole replicated one: the kernel sees only this
     rank's impacts, the mix is summed over the group and the click, a sum over the whole
     table, is added once after it. Returns (state, impacts, out (num_samples,) float32)."""
-    n_obj = params.coeff_re.shape[0]
     with scope("play/precompute"):
-        force, prev_force = _impact_force_curves(impacts, num_samples)  # (I, S), (I,)
-        click = impact_click(impacts, force, prev_force, click_gain)
-        here = impacts if shard is None else shard.local_impacts(impacts)
-        gain_rok, force_sro = _regroup(here, impact_gain_rows(params, here), force, n_obj,
-                                       n_slots)
+        gain_rok, force_sro, click = strike_precompute(params, impacts, num_samples,
+                                                       click_gain, n_slots, shard)
     with scope("play/resonate"):
         mix, z_re, z_im = resonate(params.coeff_re, params.coeff_im, params.out_gain,
                                    gain_rok, force_sro, state.z_re, state.z_im)

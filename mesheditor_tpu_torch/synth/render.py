@@ -6,8 +6,10 @@ vectorized over the block: the half-sine force curves, the acceleration-noise cl
 per-impact gain rows and, for sustained voices, the surface-track reads (positions are
 exact float64 functions of an integer sample age), relief, slopes and the drive/read gain
 rows. The recurrences themselves are synth/impact.py and synth/coupled.py (CUDA kernels,
-each with its plain PyTorch version beside it). After the block, impact ages advance,
-finished pulses retire, voice carries advance and objects that fell silent are zeroed.
+each with its plain PyTorch version beside it); on a card the strike part of the precompute
+is one kernel too (synth/strikes.py), and the functions here its plain twin. After the
+block, impact ages advance, finished pulses retire, voice carries advance and objects that
+fell silent are zeroed.
 
 Contractions are broadcast-multiply + reduce, never a matmul: the render is exact float32.
 """

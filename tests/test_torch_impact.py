@@ -15,7 +15,10 @@ import pytest
 import torch
 
 from mesheditor_tpu_torch import convert
-from mesheditor_tpu_torch.synth import ModalEvent, ModalSynth, impact
+from mesheditor_tpu_torch.parallel.sharding import ObjectBlock
+from mesheditor_tpu_torch.synth import ModalEvent, ModalSynth, coupled, impact, strikes
+from mesheditor_tpu_torch.synth.render import (_impact_force_curves, finish_block, impact_click,
+                                               impact_gain_rows)
 from mesheditor_tpu_torch.types import ModalModes
 
 BANK_FIELDS = ("coeff_re", "coeff_im", "disp_scale", "shapes", "out_gain")
@@ -156,16 +159,14 @@ def test_plain_matches_pallas_kernel_strict(ref):
 def test_state_accuracy_against_float64(scan_blocks):
     """Port and reference state against the exact recurrence (float64 from the same
     float32 inputs): the port is as accurate as the reference."""
-    from mesheditor_tpu_torch.synth.render import _impact_force_curves, impact_gain_rows
-
     bank, imp = make_wide_scene()
     n = 512
     params, state, table = port_scene(bank, imp)
     r = slots(imp)
     s_t, _i, _o = impact.render_block_impacts(params, state, table, n, 1.0, r)
     force, _prev = _impact_force_curves(table, n)
-    gain_rok, force_sro = impact._regroup(table, impact_gain_rows(params, table), force,
-                                          params.coeff_re.shape[0], r)
+    gain_rok, force_sro = strikes._regroup(table, impact_gain_rows(params, table), force,
+                                           params.coeff_re.shape[0], r)
     excite = (force_sro.double()[:, :, :, None] * gain_rok.double()[None]).sum(1)
     cr, ci = params.coeff_re.double(), params.coeff_im.double()
     zr, zi = state.z_re.double(), state.z_im.double()
@@ -227,11 +228,9 @@ def test_regroup_layout():
     bank, imp = make_scene(n_obj=3, k=8, n_imp=6, impacts_per_obj=2)
     imp["active"][3] = False  # object 1 keeps one impact
     params, _state, table = port_scene(bank, imp)
-    from mesheditor_tpu_torch.synth.render import _impact_force_curves, impact_gain_rows
-
     force, _prev = _impact_force_curves(table, 10)
     gains = impact_gain_rows(params, table)
-    gain_rok, force_sro = impact._regroup(table, gains, force, 3, 2)
+    gain_rok, force_sro = strikes._regroup(table, gains, force, 3, 2)
     assert gain_rok.shape == (2, 3, 8) and force_sro.shape == (10, 2, 3)
     # object o's r-th live impact (table order) sits in slot (r, o)
     expect = {(0, 0): 0, (1, 0): 1, (0, 1): 2, (0, 2): 4, (1, 2): 5}
@@ -285,6 +284,142 @@ def test_render_seconds_fused_equals_blocks():
     assert np.array_equal(run(True), run(False))
 
 
+def strike_scene(n_samples=512, seed=0, n_obj=6, k=16, capacity=128):
+    """A 128-row impact table as the engine leaves it: ten live strikes among retired rows
+    that keep stale values (three live on object 0, two on objects 2 and 5), one live row
+    with a negative gamma and one whose pulse ends inside an n_samples block."""
+    bank, imp = make_scene(n_obj=n_obj, k=k, n_imp=capacity, impacts_per_obj=0, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    pulse_step = rng.uniform(1 / 144, 1 / 24, capacity).astype(np.float32)
+    total = np.ceil(1.0 / pulse_step.astype(np.float64)).astype(np.int32)
+    live = rng.choice(capacity, 10, replace=False)
+    imp.update(
+        pulse_step=pulse_step, total=total,
+        gamma=(rng.uniform(0.001, 0.01, capacity) * rng.choice([-1, 1], capacity)),
+        accel_amp=rng.uniform(0, 0.01, capacity),
+        age=rng.integers(0, 400, capacity).astype(np.int32),
+        obj=rng.integers(0, n_obj, capacity).astype(np.int32),
+        expos=rng.integers(0, 2, capacity).astype(np.int32),
+    )
+    imp["active"][live] = True
+    imp["obj"][live] = rng.permutation([0, 0, 0, 1, 2, 2, 3, 4, 5, 5])
+    imp["age"][live] = [rng.integers(0, t) for t in total[live]]
+    imp["gamma"][live[0]] = -abs(imp["gamma"][live[0]])
+    end = live[1]  # this pulse ends half way through the block
+    imp["total"][end] = max(24, n_samples)
+    imp["pulse_step"][end] = np.float32(1.0 / imp["total"][end])
+    imp["age"][end] = imp["total"][end] - max(1, n_samples // 2)
+    return bank, imp
+
+
+def same_bits(a, b):
+    """Equal bit for bit (torch.equal takes -0 for +0)."""
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+@pytest.mark.parametrize("n_samples", [1, 33, 512])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_click_over_the_active_rows_equals_the_table_loop(seed, n_samples):
+    """The strike kernel's click contract on the plain chain: one thread a sample, summing
+    over the active rows only, in table order, the forces formed from the sample's age
+    (float32 products, the sine in float64), equals impact_click's loop over every row."""
+    _bank, imp = strike_scene(n_samples, seed)
+    table = convert.impact_table(**imp)
+    force, prev = _impact_force_curves(table, n_samples)
+    want = impact_click(table, force, prev, 1.3)
+    live = imp["active"]
+    assert (imp["gamma"][live] < 0).any()
+    ends = live & (imp["age"] + n_samples > imp["total"])
+    assert n_samples == 1 or (ends.any() and (force[ends, 0] != 0).all())
+
+    f32 = np.float32
+    amp_gain = f32(1.3)
+    click = np.zeros(n_samples, f32)
+    s = np.arange(n_samples)
+
+    def pulse(i, a, live):
+        step_pi = f32(f32(np.pi) * imp["pulse_step"][i])
+        phase = (step_pi * a.astype(f32)).astype(f32)
+        f = (f32(imp["gamma"][i]) * np.sin(phase.astype(np.float64)).astype(f32)).astype(f32)
+        return np.where(live, f, f32(0))
+
+    for i in np.flatnonzero(imp["active"]):
+        age, total = int(imp["age"][i]), int(imp["total"][i])
+        f = pulse(i, age + 1 + s, age + 1 + s <= total)
+        fp = pulse(i, age + s, (age + s <= total) & ((s > 0) | (age >= 1)))
+        amp = f32(f32(imp["accel_amp"][i]) * amp_gain)
+        click = (click + (amp * (f - fp).astype(f32)).astype(f32)).astype(f32)
+    assert same_bits(torch.from_numpy(click), want)
+
+
+def object_range_rule(imp, lo, hi, n_slots, gains, force):
+    """The strike kernel's slot rule, written out: an active row on an object in [lo, hi)
+    ranks among the earlier such rows on its object, and rank r < n_slots of object o owns
+    slot (r, o - lo), holding 0 + its gain row and 0 + its force curve."""
+    gain_rok = torch.zeros(n_slots, hi - lo, gains.shape[1])
+    force_sro = torch.zeros(force.shape[1], n_slots, hi - lo)
+    seen = {}
+    for i in range(len(imp["active"])):
+        o = int(imp["obj"][i])
+        if not (imp["active"][i] and lo <= o < hi):
+            continue
+        r = seen[o] = seen.get(o, -1) + 1
+        if r < n_slots:
+            gain_rok[r, o - lo] = 0.0 + gains[i]
+            force_sro[:, r, o - lo] = 0.0 + force[i]
+    return gain_rok, force_sro, max(seen.values(), default=-1) + 1
+
+
+@pytest.mark.parametrize("lo, hi", [(0, 6), (0, 3), (2, 5), (5, 6)])
+def test_regroup_of_local_impacts_is_the_object_range_rule(lo, hi):
+    """_regroup on ObjectBlock.local_impacts(table), for every n_slots up to one past the
+    live maximum, equals the object-range rule the strike kernel applies to the whole
+    table; the wrapper's CPU route gives the same slots and the click of the whole table."""
+    n = 40
+    bank, imp = strike_scene(n)
+    params, _state = convert.bank(**{f: bank[f][lo:hi] for f in BANK_FIELDS},
+                                  sample_rate=bank["sample_rate"], z_re=bank["z_re"][lo:hi],
+                                  z_im=bank["z_im"][lo:hi])
+    table = convert.impact_table(**imp)
+    shard = ObjectBlock(group=None, lo=lo, hi=hi, n_objects=6)
+    here = shard.local_impacts(table)
+    force, prev = _impact_force_curves(table, n)
+    gains = impact_gain_rows(params, here)
+    r_max = object_range_rule(imp, lo, hi, 0, gains, force)[2]
+    assert r_max >= 1
+    for n_slots in range(r_max + 2):
+        want_g, want_f, _ = object_range_rule(imp, lo, hi, n_slots, gains, force)
+        gain_rok, force_sro = strikes._regroup(here, gains, force, hi - lo, n_slots)
+        assert same_bits(gain_rok, want_g) and same_bits(force_sro, want_f)
+        g, f, click = strikes.strike_precompute(params, table, n, 1.0, n_slots, shard)
+        assert same_bits(g, want_g) and same_bits(f, want_f)
+        assert same_bits(click, impact_click(table, force, prev, 1.0))
+
+
+def test_cpu_route_never_loads_the_kernels(monkeypatch):
+    """Impact and coupled blocks on CPU tables take the plain chain: the kernel library is
+    never loaded, and neither the launch count nor the play/strike_precompute counter
+    moves."""
+    from mesheditor_tpu_torch import _build, profile
+    from test_torch_sustained import coupled_scene, port_coupled
+
+    def refuse():
+        raise AssertionError("the CPU route loaded the kernel library")
+
+    monkeypatch.setattr(_build, "load_kernels", refuse)
+    monkeypatch.setattr(profile, "enabled", True)
+    profile.reset()
+    try:
+        bank, imp = make_scene()
+        impact.render_block_impacts(*port_scene(bank, imp), 64, 1.0, slots(imp))
+        coupled.render_block_coupled(*port_coupled(coupled_scene()), 64, 1.0, 1.0, 1.0, 1)
+        assert strikes.LAUNCHES == 0
+        assert "play/strike_precompute" not in profile.counts()
+    finally:
+        profile.reset()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", SCENES)
 def test_kernel_matches_plain_on_card(name):
@@ -306,12 +441,11 @@ def test_kernel_matches_plain_on_card(name):
     # Same card tensors through both recurrences: separately rounded float32 multiply-adds
     # on both sides, so the state is bit-identical and only the mix's summation order
     # differs.
-    from mesheditor_tpu_torch.synth.render import _impact_force_curves, impact_gain_rows
 
     params, state, table = port_scene(bank, imp, "cuda")
     force, _prev = _impact_force_curves(table, 1000)
-    gain_rok, force_sro = impact._regroup(table, impact_gain_rows(params, table), force,
-                                          params.coeff_re.shape[0], r)
+    gain_rok, force_sro = strikes._regroup(table, impact_gain_rows(params, table), force,
+                                           params.coeff_re.shape[0], r)
     args = (params.coeff_re, params.coeff_im, params.out_gain, gain_rok, force_sro,
             state.z_re, state.z_im)
     mix_k, zr_k, zi_k = impact.resonate(*args)
@@ -328,13 +462,12 @@ def test_kernel_state_is_bit_identical_on_card(name, n_samples):
     2S samples equal S then S."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
-    from mesheditor_tpu_torch.synth.render import _impact_force_curves, impact_gain_rows
 
     bank, imp = SCENES[name]()
     params, state, table = port_scene(bank, imp, "cuda")
     force, _prev = _impact_force_curves(table, 2 * n_samples)
-    gain_rok, force_sro = impact._regroup(table, impact_gain_rows(params, table), force,
-                                          params.coeff_re.shape[0], slots(imp))
+    gain_rok, force_sro = strikes._regroup(table, impact_gain_rows(params, table), force,
+                                           params.coeff_re.shape[0], slots(imp))
     head = force_sro[:n_samples].contiguous()
     args = (params.coeff_re, params.coeff_im, params.out_gain, gain_rok, head, state.z_re,
             state.z_im)
@@ -352,3 +485,94 @@ def test_kernel_state_is_bit_identical_on_card(name, n_samples):
     mix_2, zr_2, zi_2 = run(*args[:4], force_sro[n_samples:].contiguous(), zr_k, zi_k)
     assert torch.equal(mix_12, torch.cat([mix_k, mix_2]))
     assert torch.equal(zr_12, zr_2) and torch.equal(zi_12, zi_2)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+
+
+STRIKE_TABLES = {"table_128": 128, "table_300": 300}  # strike_scene's capacities
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_samples", [1, 33, 512, 1000, 16384])
+@pytest.mark.parametrize("name", [*SCENES, *STRIKE_TABLES])
+def test_strike_kernel_matches_plain_chain_on_card(name, n_samples):
+    """The strike kernel's gain rows, forces and click equal the plain chain's bit for bit
+    on the same card tensors: every n_slots up to one past the live maximum (rows dropped),
+    a negative gamma, a pulse that ends inside the block, a sharded object range, and a
+    table longer than one CTA's pass over its rows."""
+    _needs_card()
+    if name in STRIKE_TABLES:
+        bank, imp = strike_scene(n_samples, capacity=STRIKE_TABLES[name])
+    else:
+        bank, imp = SCENES[name]()
+        imp = {f: np.array(v) for f, v in imp.items()}
+        imp["gamma"][1] = -imp["gamma"][1]
+        imp["total"][2] = max(24, n_samples)
+        imp["pulse_step"][2] = 1.0 / imp["total"][2]
+        imp["age"][2] = imp["total"][2] - max(1, n_samples // 2)
+    n_obj = len(bank["out_gain"])
+    table = convert.impact_table(device="cuda", **imp)
+    for lo, hi in ((0, n_obj), (1, n_obj // 2 + 1)):
+        params, _state = convert.bank(**{f: bank[f][lo:hi] for f in BANK_FIELDS},
+                                      sample_rate=bank["sample_rate"],
+                                      z_re=bank["z_re"][lo:hi], z_im=bank["z_im"][lo:hi],
+                                      device="cuda")
+        shard = None if (lo, hi) == (0, n_obj) else ObjectBlock(None, lo, hi, n_obj)
+        for n_slots in range(slots(imp) + 2):
+            launch, got = strikes._bind(params, table, n_samples, 1.3, n_slots, lo)
+            launch()
+            want = strikes._plain(params, table, n_samples, 1.3, n_slots, shard)
+            for what, g, w in zip(("gain_rok", "force_sro", "click"), got, want):
+                assert same_bits(g, w), f"{what}: objects [{lo}, {hi}), n_slots={n_slots}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_samples", [1, 256, 300, 512])
+@pytest.mark.parametrize("name", SCENES)
+def test_strike_kernel_click_is_block_boundary_invariant_on_card(name, n_samples):
+    """The kernel's click over 2S samples equals S then S (the table advanced by
+    finish_block between), bit for bit."""
+    _needs_card()
+    bank, imp = SCENES[name]()
+    params, state, table = port_scene(bank, imp, "cuda")
+    r = slots(imp)
+    _g, _f, c1 = strikes.strike_precompute(params, table, n_samples, 1.0, r)
+    _s, table2, _v = finish_block(params, table, state.z_re, state.z_im, n_samples)
+    _g, _f, c2 = strikes.strike_precompute(params, table2, n_samples, 1.0, r)
+    _g, _f, c12 = strikes.strike_precompute(params, table, 2 * n_samples, 1.0, r)
+    assert same_bits(c12, torch.cat([c1, c2]))
+
+
+@pytest.mark.cuda
+def test_each_card_block_launches_the_strike_kernel_once(monkeypatch):
+    """render_block_impacts and render_block_coupled on the card raise strikes.LAUNCHES by
+    one a block, the resonator kernel's count by one as before, and the
+    play/strike_precompute counter by one a block."""
+    _needs_card()
+    from mesheditor_tpu_torch import profile
+    from test_torch_sustained import coupled_scene, port_coupled
+
+    monkeypatch.setattr(profile, "enabled", True)
+    profile.reset()
+    try:
+        bank, imp = make_scene()
+        params, state, table = port_scene(bank, imp, "cuda")
+        before = strikes.LAUNCHES, impact.LAUNCHES, coupled.LAUNCHES
+        for _ in range(3):
+            state, table, _out = impact.render_block_impacts(params, state, table, 512, 1.0,
+                                                             slots(imp))
+        assert (strikes.LAUNCHES, impact.LAUNCHES, coupled.LAUNCHES) == (
+            before[0] + 3, before[1] + 3, before[2])
+        params, state, table, voices, pool = port_coupled(coupled_scene(), "cuda")
+        for _ in range(2):
+            state, table, voices, _out = coupled.render_block_coupled(
+                params, state, table, voices, pool, 256, 1.0, 1.0, 1.0, 1)
+        assert (strikes.LAUNCHES, impact.LAUNCHES, coupled.LAUNCHES) == (
+            before[0] + 5, before[1] + 3, before[2] + 2)
+        torch.cuda.synchronize()
+        assert profile.counts()["play/strike_precompute"] == 5
+    finally:
+        profile.reset()
