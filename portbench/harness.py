@@ -7,7 +7,10 @@ own, found by name:
 - `cells/<cell>.json` names its configuration, its traffic mix and its loop kind;
 - `configs/<config>.json` holds the configuration's sizes;
 - `traffic/<traffic>.json` holds the mix's parameters, read by the loop's generator;
-- `loops/<kind>.py` runs a kind of traffic (`run(ctx) -> Run`);
+- `loops/<kind>.py` is all that knows a kind of traffic: it runs a cell
+  (`run(ctx) -> Run`), cuts a cell to the CPU tests' size (`small(config, traffic)`, see
+  tests/small.py) and runs the cell's control (`control(config, traffic, seed, limits,
+  blocks)`, see calibrate.py), so a new kind is a new loop file and its data files;
 - `metrics/<metric>.py` reads one metric from a Run (`read(run) -> float | None`).
 
 Which metrics a cell reports is read from BENCHMARK.json at the checkout's root: the
@@ -59,6 +62,15 @@ def load_module(kind: str, name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def loop_function(kind: str, name: str):
+    """The function `name` (`run`, `small` or `control`) of the loop kind `kind`."""
+    mod = load_module("loops", kind)
+    fn = getattr(mod, name, None)
+    if fn is None:
+        raise AttributeError(f"loop kind {kind!r} ({mod.__file__}) has no function {name!r}")
+    return fn
 
 
 def cell_metrics(bench: dict, cell: str, trace: bool) -> list:
@@ -157,9 +169,8 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device: str,
     config = config if config is not None else load_json("configs", spec["config"])
     traffic = traffic if traffic is not None else load_json("traffic", spec["traffic"])
     limits = limits if limits is not None else spec["limits"]
-    loop = load_module("loops", traffic["kind"])
     ctx = Context(cell, config, traffic, seed, seconds, trace, device, t_start, limits)
-    run = loop.run(ctx)
+    run = loop_function(traffic["kind"], "run")(ctx)
     run.config, run.traffic = config, traffic
     return run
 

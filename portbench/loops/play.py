@@ -244,3 +244,90 @@ def reference_checks(tr, play, mat, bank, contacts, surface_of, program_voices, 
         checks.append(Check("voice_rel", voice_checks(program_voices, ref_voices),
                             limits["voice_rel"]))
     return checks
+
+
+def small(config, traffic):
+    """The CPU tests' cut: 4 objects of 24 modes, one warm-up block, strikes at 400/s,
+    half the blocks checked, 2 contacts where the mix has them."""
+    config["play"].update(objects=4, modes=24)
+    traffic.update(warm_blocks=1, trace_units=2, strike_rate=400.0, sample_every=0.5)
+    if traffic.get("contacts"):
+        traffic["contacts"] = 2
+    return config, traffic
+
+
+def _bf16(x):
+    import torch
+
+    return float(torch.tensor(float(x), dtype=torch.bfloat16))
+
+
+def control(config, traffic, seed, limits, blocks):
+    """The bfloat16 render against the float64 one over the first `blocks` blocks, each
+    side chained from rest on its own state."""
+    from types import SimpleNamespace
+
+    import torch
+
+    play, sr, n = config["play"], float(config["play"]["sample_rate"]), config["play"]["block"]
+    mat = {k: float(v) for k, v in config["material"].items() if k != "name"}
+    bank = inputs.modal_bank(seed, play, mat)
+    surfaces = [tuple(s) for s in traffic.get("surfaces", [])]
+    contacts = inputs.contacts(seed, traffic, lambda o: bank[o][3])
+
+    def surface_of(o):
+        return surfaces[o % len(surfaces)]
+
+    def strikes(b):
+        return inputs.strikes_in_block(seed, b, traffic, play["objects"], play["positions"],
+                                       n, sr)
+
+    def round_voices(vs):
+        out = []
+        for v in vs:
+            w = dict(v)
+            for key in ("normal_force", "friction", "stiffness", "static_pen", "damping"):
+                w[key] = _bf16(v[key])
+            for key in ("normal", "slip"):
+                w[key] = np.array([_bf16(a) for a in v[key]])
+            w["sweep"] = tuple(np.array([_bf16(a) for a in s]) for s in v["sweep"])
+            w["tracks"] = [(t[0], *(_bf16(a) for a in t[1:])) for t in v["tracks"]]
+            out.append(w)
+        return out
+
+    low_voices = round_voices(ref_bridge.voices(contacts, mat, surface_of, lambda o: bank[o][3], sr))
+    tracks = {}
+    for v in low_voices:
+        for surf, *_r in v["tracks"]:
+            if surf is not None and surf not in tracks:
+                tracks[surf] = ref_bridge.roughness(surf[1], surf[2], surf[3])
+    gain = play["modal_level"] / play["modes"] * 1e3
+    tab = ref_synth.Tables([b[:3] for b in bank], [gain] * play["objects"], sr, low_voices,
+                           tracks, torch.bfloat16)
+    k = play["modes"]
+    state = (np.zeros((play["objects"], k)), np.zeros((play["objects"], k)), {})
+    snaps = {}
+
+    def snap(z_re, z_im, carries):
+        return {"z_re": z_re, "z_im": z_im,
+                "carries": {v["obj"]: carries[v["voice_id"]] for v in low_voices
+                            if v["voice_id"] in carries}}
+
+    for b in range(blocks):
+        before = snap(*state)
+        out, z_re, z_im, car = ref_synth.render_block(
+            tab, state[0], state[1], live_strikes(b, strikes, n, sr), state[2], n * b, n)
+        state = (z_re, z_im, car)
+        snaps[b] = (before, snap(*state), out)
+    program_voices = [SimpleNamespace(
+        voice_id=v["voice_id"], obj=v["obj"], blend_points=(v["expos"],) * 3,
+        stiffness=v["stiffness"], static_penetration=v["static_pen"], damping_coeff=v["damping"],
+        normal_force=v["normal_force"], friction=v["friction"], normal=tuple(v["normal"]),
+        slip_dir=tuple(v["slip"]), sweep_dir=v["sweep"],
+        tracks=[SimpleNamespace(index=0 if t[0] is not None else -1, rate=t[1], sigma=t[2],
+                                window=t[3], step=t[4]) for t in v["tracks"]])
+        for v in low_voices]
+    tr = dict(traffic, start_blocks=blocks)  # every block chained on the control's own state
+    checks = reference_checks(tr, play, mat, bank, contacts, surface_of, program_voices, snaps,
+                              strikes, n, sr, torch.float64, limits)
+    return {c.name: c.value for c in checks}

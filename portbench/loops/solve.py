@@ -10,7 +10,7 @@ import numpy as np
 
 from portbench import inputs
 from portbench.reference import fem
-from portbench.solving import material_dict, record, run_solves
+from portbench.solving import material_dict, modes_control, record, run_solves
 
 
 def run(ctx):
@@ -46,3 +46,23 @@ def run(ctx):
                                solver["max_mode_freq"], np.float64)
 
     return run_solves(ctx, call, tr["warm_calls"], reference, ctx.cell_limits)
+
+
+def small(config, traffic):
+    """The CPU tests' cut: a 6x4x3 box to 40 modes, on the device engine (`small_n=0`)."""
+    config["mesh"]["resolution"] = [6, 4, 3]
+    config["solver"].update(num_modes=40, num_fem_modes=40, small_n=0)
+    return config, traffic
+
+
+def control(config, traffic, seed, limits, blocks):
+    """The float32 reference against the float64 one on the seed's first window solve."""
+    mesh = config["mesh"]
+    points, tets = inputs.box_tets(mesh["extents"], mesh["resolution"])
+    ids = inputs.boundary_vertices(mesh["resolution"])
+    n_ex, sv = config["excitation_points"], config["solver"]
+    args = (sv["num_modes"], sv["num_fem_modes"], sv.get("min_mode_freq", 20.0),
+            sv["max_mode_freq"])
+    moved, excite = inputs.solve_call(seed, 0, points, ids, n_ex, traffic["rotate"],
+                                      traffic["shift_m"])
+    return modes_control(moved, tets, material_dict(config), excite, args, limits)

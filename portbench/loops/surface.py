@@ -12,7 +12,7 @@ import numpy as np
 
 from portbench import inputs
 from portbench.reference import fem, mesher
-from portbench.solving import material_dict, record, run_solves
+from portbench.solving import material_dict, modes_control, record, run_solves
 
 
 def run(ctx):
@@ -52,3 +52,25 @@ def run(ctx):
                                settings.min_mode_freq, settings.max_mode_freq, np.float64)
 
     return run_solves(ctx, call, tr["warm_calls"], reference, ctx.cell_limits)
+
+
+def small(config, traffic):
+    """The CPU tests' cut: the torus at 16x8 surface segments, tets at bbox/6."""
+    config["surface"].update(n_major=16, n_minor=8)
+    config["tet_resolution"] = 6
+    return config, traffic
+
+
+def control(config, traffic, seed, limits, blocks):
+    """The float32 reference against the float64 one on the seed's first window solve,
+    each on the reference mesher's tets of the moved surface."""
+    s = config["surface"]
+    points, tris = inputs.torus_surface(s["major"], s["minor"], s["n_major"], s["n_minor"])
+    ids, st = np.arange(len(points)), config["settings"]
+    n_ex, nm = st["num_vertices"], st["num_modes"]
+    args = (nm, max(nm + 15, nm * 3 // 2), st["min_mode_freq"], st["max_mode_freq"])
+    moved, excite = inputs.solve_call(seed, 0, points, ids, n_ex, traffic["rotate"],
+                                      traffic["shift_m"])
+    span = float((moved.max(0) - moved.min(0)).max())
+    moved, tets = mesher.delaunay(moved, tris, span / config["tet_resolution"])
+    return modes_control(moved, tets, material_dict(config), excite, args, limits)

@@ -33,6 +33,16 @@ def record(result, wall: float) -> dict:
     return unit
 
 
+def modes_control(points, tets, mat: dict, excite, args: tuple, limits: dict) -> dict:
+    """A solve kind's control: the float32 reference against the float64 one on the same
+    tets and excitation, by the cell's numbers. `args` is fem.solve_modes's (num_modes,
+    num_fem_modes, min_mode_freq, max_mode_freq)."""
+    ref = fem.solve_modes(points, tets, mat, excite, *args, np.float64)
+    low = fem.solve_modes(points, tets, mat, excite, *args, np.float32)
+    checks = compare.modes_checks({"modes": low, "dofs": low["dofs"]}, ref, limits)
+    return {c.name: c.value for c in checks}
+
+
 def run_solves(ctx, call, warm_calls: int, reference, limits: dict) -> Run:
     """Warm up with `warm_calls` calls of inputs no window call gets, run the window, then
     compare. `call(i)` runs the i-th solve (negative i: warm-up) and returns its record;

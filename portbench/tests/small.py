@@ -1,4 +1,6 @@
-"""Each cell at a size the CPU runs in seconds: the tests' stand-in for the files."""
+"""Each cell at a size the CPU runs in seconds: the tests' stand-in for the files. The cut
+is the cell's loop kind's own (`small(config, traffic)` in `loops/<kind>.py`), so a new
+kind brings its cut in its loop file and this file knows no kind."""
 
 from __future__ import annotations
 
@@ -12,17 +14,7 @@ def small(cell: str):
     spec = harness.load_json("cells", cell)
     cfg = harness.load_json("configs", spec["config"])
     tr = harness.load_json("traffic", spec["traffic"])
-    if tr["kind"] == "solve":
-        cfg["mesh"]["resolution"] = [6, 4, 3]
-        cfg["solver"].update(num_modes=40, num_fem_modes=40, small_n=0)
-    elif tr["kind"] == "surface":
-        cfg["surface"].update(n_major=16, n_minor=8)
-        cfg["tet_resolution"] = 6
-    else:
-        cfg["play"].update(objects=4, modes=24)
-        tr.update(warm_blocks=1, trace_units=2, strike_rate=400.0, sample_every=0.5)
-        if tr.get("contacts"):
-            tr["contacts"] = 2
+    cfg, tr = harness.loop_function(tr["kind"], "small")(cfg, tr)
     return cfg, tr, dict(spec["limits"])
 
 

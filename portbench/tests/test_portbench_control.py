@@ -2,17 +2,19 @@
 program's place) fails each cell's limits, here at a small size; on the card it is run at
 the cells' own sizes by `python3 -m portbench.calibrate`."""
 
+import json
+
 import pytest
 import torch
 
-from portbench import calibrate
+from portbench import calibrate, harness
 from portbench.tests.small import small
 
 torch.set_num_threads(2)
+CELLS = [w["name"] for w in json.loads((harness.ROOT / "BENCHMARK.json").read_text())["workloads"]]
 
 
-@pytest.mark.parametrize("cell", ["box.solve", "torus.surface", "box.sustained",
-                                  "box.impacts"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_the_control_fails_a_limit(cell):
     cfg, tr, limits = small(cell)
     got = calibrate.control(cell, 2**31 + 99, cfg, tr, limits)
