@@ -1210,32 +1210,6 @@ def falling_scene(seed=20261016, n_bodies=8):
 
 
 @contextlib.contextmanager
-def timed_methods(*targets):
-    """Wrap each (class, method name) so that every call's (start, end) on the host clock
-    lands in the yielded {"Class.method": [...]}; the methods are restored on exit."""
-    spans: dict[str, list] = {}
-    saved = []
-    for cls, name in targets:
-        inner = getattr(cls, name)
-        rec = spans.setdefault(f"{cls.__name__}.{name}", [])
-
-        def wrapper(*args, _inner=inner, _rec=rec, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return _inner(*args, **kwargs)
-            finally:
-                _rec.append((t0, time.perf_counter()))
-
-        saved.append((cls, name, inner))
-        setattr(cls, name, wrapper)
-    try:
-        yield spans
-    finally:
-        for cls, name, inner in saved:
-            setattr(cls, name, inner)
-
-
-@contextlib.contextmanager
 def solve_log(tag: str | None = None, card: str = ""):
     """While open, every lobpcg_pencil call (direct, or through mesh2modes) is logged under
     `tag` as it returns, with its dofs, the exit that answered (the engine's, "host",
@@ -1406,12 +1380,12 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
     them ("bodies"). (A rehearsal off the card passes a coarser tet_resolution.)"""
     import torch
 
+    from mesheditor_tpu_torch import profile
     from mesheditor_tpu_torch.mesh import cdt, voxel_tets
-    from mesheditor_tpu_torch.physics import AudioContactBridge, PhysicsWorld
     from mesheditor_tpu_torch.scene import components as c
     from mesheditor_tpu_torch.scene.audio_sync import SceneAudio, simulate_scene
     from mesheditor_tpu_torch.solve import lobpcg
-    from mesheditor_tpu_torch.synth import ModalSynth, coupled, impact
+    from mesheditor_tpu_torch.synth import coupled, impact
 
     reg, bodies = falling_scene()
     start = {e: reg.get(e, c.Transform).translation.copy() for e in bodies}
@@ -1462,13 +1436,20 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
             f"{ratio:.5f}) with no solve; a fresh SceneAudio loaded all {len(bodies)} ({card})")
 
         impact.LAUNCHES = coupled.LAUNCHES = 0
-        with timed_methods((PhysicsWorld, "step"), (AudioContactBridge, "on_impacts"),
-                           (AudioContactBridge, "resolve_voices"),
-                           (ModalSynth, "publish_voices"), (ModalSynth, "render")) as spans:
+        profile.reset()
+        profile.enabled = True  # the scene's spans: play/physics, play/bridge, play/block
+        try:
             t0 = time.perf_counter()
             audio = simulate_scene(reg, store, seconds=1.0, sample_rate=48_000.0,
                                    block_size=512, tet_resolution=tet_resolution, device=device)
             scene_s = time.perf_counter() - t0
+        finally:
+            profile.enabled = False
+        spans = {}
+        for span in profile.records():
+            spans.setdefault(span.name, []).append((span.start, span.end))
+        steps_counted = profile.counts().get("physics/steps", 0)
+        profile.reset()
         launches = {"impact": impact.LAUNCHES, "coupled": coupled.LAUNCHES}
         # The same scene again from the stored models (nothing is solved), this time with
         # every block also rendered by the plain version on host copies of its inputs.
@@ -1502,28 +1483,28 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
         t = reg.get(e, c.Transform).translation
         assert 0.0 < t[1] < start[e][1], f"entity {e} pose {t}"
         assert e == bodies[0] or t[0] != start[e][0], f"entity {e} did not travel: {t}"
-    ends = np.array([end for _t0, end in spans["ModalSynth.render"]])
+    ends = np.array([end for _t0, end in spans["play/block"]])
     assert ends.size == blocks
-    walls = np.diff(np.concatenate([[spans["PhysicsWorld.step"][0][0]], ends])) * 1e3
+    assert len(spans["play/physics"]) == steps_counted > 0, "a physics step went uncounted"
+    walls = np.diff(np.concatenate([[spans["play/physics"][0][0]], ends])) * 1e3
 
     def per_block(name):
-        """Host milliseconds of `name` calls inside each block (a block ends with its
-        render call's return)."""
+        """Host milliseconds of `name` spans inside each block (a block ends with its
+        render's `play/block` span)."""
         out = np.zeros(blocks)
         for a, b in spans[name]:
             out[min(int(np.searchsorted(ends, b)), blocks - 1)] += (b - a) * 1e3
         return out
 
-    step, bridge = per_block("PhysicsWorld.step"), (per_block("AudioContactBridge.on_impacts")
-                                                    + per_block("AudioContactBridge.resolve_voices"))
-    render = per_block("ModalSynth.publish_voices") + per_block("ModalSynth.render")
+    step, bridge, render = (per_block("play/physics"), per_block("play/bridge"),
+                            per_block("play/block"))
     log(f"[scene] plane + {len(bodies)} bodies, 1 s at 48 kHz in {blocks} blocks of 512: rms "
         f"{float(np.sqrt((audio.astype(np.float64) ** 2).mean()))!r} (the second run's "
         f"{float(np.sqrt((audio2.astype(np.float64) ** 2).mean()))!r}; every call of the "
         f"script solves the scene afresh and must print these bits again), peak "
         f"{float(np.abs(audio).max()):.3e}; impact launches {launches['impact']}, coupled "
         f"launches {launches['coupled']} (one kernel launch per block); "
-        f"{len(spans['PhysicsWorld.step'])} physics steps")
+        f"{len(spans['play/physics'])} physics steps")
     log(f"[scene] every block of the same scene, run again from the stored models, against "
         f"the plain version on host copies of its inputs ({checked_s:.3f} s): "
         + json.dumps(parity) + f"; max |second run - first run| {rerun_diff:.3e} ({card})")
@@ -1531,10 +1512,10 @@ def scene_phase(device, card: str, tet_resolution: int = 24, store=None) -> dict
         f"{float(walls.max()):.3f} ms against the {BLOCK_DEADLINE_MS:.3f} ms deadline; host "
         f"per block (median / largest): world.step {float(np.median(step)):.3f} / "
         f"{float(step.max()):.3f} ms, bridge {float(np.median(bridge)):.3f} / "
-        f"{float(bridge.max()):.3f} ms, publish + render call {float(np.median(render)):.3f} / "
+        f"{float(bridge.max()):.3f} ms, render call {float(np.median(render)):.3f} / "
         f"{float(render.max()):.3f} ms; shares of the loop: world.step "
         f"{float(step.sum() / walls.sum()):.3f}, bridge {float(bridge.sum() / walls.sum()):.3f}, "
-        f"publish + render {float(render.sum() / walls.sum()):.3f}; simulate_scene "
+        f"render {float(render.sum() / walls.sum()):.3f}; simulate_scene "
         f"{scene_s:.3f} s in all ({card})")
     return {"kernels": {kind: {"launches": launches[kind], **parity[kind]} for kind in launches},
             "bodies": [(reg2.get(e, c.AcousticMaterialRef).density, reg2.get(e, c.ModalModel))

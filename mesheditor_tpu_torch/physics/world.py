@@ -7,6 +7,7 @@ SURVEY.md §2.4). Sequential-impulse solver over primitive shapes (sphere, box, 
 plane), semi-implicit Euler, quaternion orientation, fixed iteration counts — every run of
 the same scene produces the same contact stream, which is what the audio replay tests
 need. Pose baking mirrors physics::BakeThrough/SamplePosesAtFrame (PhysicsSystem.h:22-30).
+Each step counts `physics/steps` and its contact points in `physics/contacts` (profile.py).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..profile import count
 from .types import (
     BodyHandle,
     CollisionFilter,
@@ -852,6 +854,8 @@ class PhysicsWorld:
             b.ang *= max(0.0, 1.0 - b.motion.angular_damping * dt)
 
         contacts = self._collect_contacts()
+        count("physics/steps")
+        count("physics/contacts", len(contacts))
         # Precompute per-contact constants; accumulate normal impulses across iterations.
         normal_impulse = np.zeros(len(contacts))
         approach = np.zeros(len(contacts))

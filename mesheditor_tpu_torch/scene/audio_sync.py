@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profile import scope
 from ..solve.orchestration import SolvedFingerprint, hash_solve_inputs, modal_model_stale
 from ..types import (
     AcousticMaterialProperties, ModalModes, ModalSolveSettings, ModalTuning, SolverConfig,
@@ -293,6 +294,90 @@ class SceneAudio:
         return out
 
 
+class SceneSimulation:
+    """A physics scene that sounds, advanced one audio block at a time: the loop body of
+    `simulate_scene` on its own, for callers that time or steer each block (an editor's
+    play button, a benchmark's frame loop).
+
+    The constructor solves what is stale (SceneAudio.reconcile), builds the physics world
+    from the rigid-body components and registers every audible body with the contact
+    bridge. `block()` runs the physics steps that fall in one block, bridges their contact
+    reports into strikes and the block's voice set, and renders the block. `restart()`
+    rebuilds the world and the bridge from the registry's current Transform and
+    RigidBodyComponent values: the bank, its ringing state and its models stay, and nothing
+    is solved.
+
+    Spans (profile.py): each physics step is `play/physics`, the bridge's work
+    (`on_impacts`, `resolve_voices`) `play/bridge`, both beside the engine's `play/block`
+    render; the world counts `physics/steps` and `physics/contacts`."""
+
+    def __init__(self, registry: Registry, store_dir, sample_rate: float = 48_000.0,
+                 block_size: int = 512, gravity=(0.0, -9.81, 0.0), tet_resolution: int = 24,
+                 progress=None, device="cuda"):
+        self.registry = registry
+        self.sample_rate = float(sample_rate)
+        self.block_size = int(block_size)
+        self.gravity = gravity
+        self.audio = SceneAudio(registry, store_dir, sample_rate, tet_resolution,
+                                device=device)
+        self.audio.reconcile(progress)
+        self.restart()
+
+    def restart(self) -> None:
+        """A fresh world and bridge at the registry's current poses and velocities."""
+        from ..physics.bridge import AudioBody, AudioContactBridge
+        from ..physics.scene_build import build_world
+        from ..synth.contact import ContactDynamics, inverse_inertia_tensor
+
+        sa = self.audio
+        self.world, self.handles = build_world(self.registry, gravity=self.gravity)
+        self.bridge = AudioContactBridge(sa.synth) if sa.synth is not None else None
+        if self.bridge is not None:
+            for e, slot in sa._slots.items():
+                if e not in self.handles:
+                    continue
+                live = sa._live[e]
+                mp = live.mass
+                positions = np.asarray(live.modes.positions, np.float64)
+                dyn = ContactDynamics(
+                    mass=float(getattr(mp, "mass", 0.0)),
+                    inverse_inertia=inverse_inertia_tensor(mp),
+                    contact_arm=positions - np.asarray(
+                        getattr(mp, "center_of_mass", np.zeros(3))),
+                )
+                self.bridge.register(self.handles[e], AudioBody(
+                    synth_obj=slot, dynamics=dyn, material=live.material,
+                    sample_positions=positions,
+                ))
+        self.voices = []  # the voice set the last block published
+        self._carry = 0.0
+
+    def block(self, on_step=None):
+        """One block: the physics steps the block's span of time holds (the fraction
+        carries over), each step's impact reports struck, the voice set of the last step's
+        sustained contacts published, and the block rendered. `on_step()` is called after
+        each step. Returns the block as a device tensor, or None when nothing is audible."""
+        world, bridge = self.world, self.bridge
+        self._carry += self.block_size / self.sample_rate / world.dt
+        steps = int(self._carry)
+        self._carry -= steps
+        for _ in range(steps):
+            with scope("play/physics"):
+                world.step()
+            if bridge is not None and world.impacts:
+                with scope("play/bridge"):
+                    bridge.on_impacts(world.impacts)
+            if on_step is not None:
+                on_step()
+        if bridge is None:
+            return None
+        with scope("play/bridge"):
+            self.voices = bridge.resolve_voices(world.sustained, self.sample_rate)
+        synth = self.audio.synth
+        synth.publish_voices(self.voices)
+        return synth.render(self.block_size)
+
+
 def simulate_scene(
     registry: Registry,
     store_dir,
@@ -311,7 +396,8 @@ def simulate_scene(
     is stale (SceneAudio.reconcile), builds the physics world from the rigid-body
     components, bridges contact reports into strikes and sustained voices each audio
     block, and writes the simulated poses back onto the entities at the end
-    (reference: AudioSystem::Process + PhysicsSystem step ordering).
+    (reference: AudioSystem::Process + PhysicsSystem step ordering). A loop over
+    SceneSimulation.block.
 
     `on_frame(registry, frame_index)` fires at the `video_fps` frame clock with the
     current simulated poses written back and derived — render there for audio-locked
@@ -319,55 +405,24 @@ def simulate_scene(
 
     The rendered blocks stay on `device` until the end, so the host steps the physics of
     block n + 1 while the device still renders block n; one copy brings the audio back."""
-    from ..physics.bridge import AudioBody, AudioContactBridge
-    from ..physics.scene_build import build_world, write_back_poses
-    from ..synth.contact import ContactDynamics, inverse_inertia_tensor
+    from ..physics.scene_build import write_back_poses
 
-    sa = SceneAudio(registry, store_dir, sample_rate, tet_resolution, device=device)
-    sa.reconcile(progress)
-    world, handles = build_world(registry, gravity=gravity)
-    bridge = AudioContactBridge(sa.synth) if sa.synth is not None else None
-    if bridge is not None:
-        for e, slot in sa._slots.items():
-            if e not in handles:
-                continue
-            live = sa._live[e]
-            mp = live.mass
-            positions = np.asarray(live.modes.positions, np.float64)
-            dyn = ContactDynamics(
-                mass=float(getattr(mp, "mass", 0.0)),
-                inverse_inertia=inverse_inertia_tensor(mp),
-                contact_arm=positions - np.asarray(
-                    getattr(mp, "center_of_mass", np.zeros(3))),
-            )
-            bridge.register(handles[e], AudioBody(
-                synth_obj=slot, dynamics=dyn, material=live.material,
-                sample_positions=positions,
-            ))
-
+    sim = SceneSimulation(registry, store_dir, sample_rate, block_size, gravity,
+                          tet_resolution, progress, device)
     total_blocks = int(np.ceil(seconds * sample_rate / block_size))
-    blocks = []
-    carry = 0.0
-    sim_t = 0.0
-    next_frame = 0
-    for _ in range(total_blocks):
-        carry += block_size / sample_rate / world.dt
-        steps = int(carry)
-        carry -= steps
-        for _ in range(steps):
-            world.step()
-            sim_t += world.dt
-            if bridge is not None and world.impacts:
-                bridge.on_impacts(world.impacts)
-            if on_frame is not None and sim_t * video_fps >= next_frame:
-                write_back_poses(registry, world, handles)
-                registry.process()
-                on_frame(registry, next_frame)
-                next_frame += 1
-        if bridge is not None:
-            sa.synth.publish_voices(bridge.resolve_voices(world.sustained, sample_rate))
-            blocks.append(sa.synth.render(block_size))
-    write_back_poses(registry, world, handles)
-    if not blocks:
+    clock = {"t": 0.0, "frame": 0}
+
+    def frame_clock():
+        clock["t"] += sim.world.dt
+        if clock["t"] * video_fps >= clock["frame"]:
+            write_back_poses(registry, sim.world, sim.handles)
+            registry.process()
+            on_frame(registry, clock["frame"])
+            clock["frame"] += 1
+
+    blocks = [sim.block(frame_clock if on_frame is not None else None)
+              for _ in range(total_blocks)]
+    write_back_poses(registry, sim.world, sim.handles)
+    if sim.bridge is None or not blocks:
         return np.zeros(total_blocks * block_size, np.float32)
     return torch.cat(blocks).cpu().numpy()
